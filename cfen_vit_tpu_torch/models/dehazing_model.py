@@ -1,0 +1,85 @@
+"""Generator wrapper for inference (counterpart of
+cfen_vit_tpu/models/dehazing_model.py).
+
+Batches arrive as NHWC from the JAX package's data loader and travel to
+the device as uint8; the forward normalises with x/127.5 - 1 and returns
+uint8 through the reference's truncating tensor2im.  Visuals are named
+real_B / fake_A / fake_R / fake_S as in the reference.  With --out_all the
+generator runs its d-only path and only fake_A comes back.
+
+Ported: `--model` dec_vit and test with the v3 generator.  --chop and
+--self_ensemble (models/inference_utils.py) are ROADMAP Queue A item 6.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .generator import Generator
+from .registry import generator_spec
+from ..train.checkpoint import latest_epoch, load_net
+
+_VISUAL = {"d": "fake_A", "r": "fake_R", "s": "fake_S"}
+
+
+class DehazingModel:
+    def __init__(self, cfg, device: torch.device):
+        if cfg.model not in ("dec_vit", "test"):
+            raise NotImplementedError(
+                f"--model {cfg.model}: the port runs dec_vit and test "
+                "(ROADMAP Queue A items 6 and 8)")
+        if getattr(cfg, "chop", False) or getattr(cfg, "self_ensemble", False):
+            raise NotImplementedError("--chop and --self_ensemble are not "
+                                      "ported yet (ROADMAP Queue A item 6)")
+        self.cfg = cfg
+        self.device = device
+        self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                      else torch.float32)
+        self.spec = generator_spec(cfg.model_G, cfg)
+        self.net = Generator(self.spec)
+        # --out_all keeps only fake_A (ref test.py:47-55); the generator
+        # then skips the work only R and S outputs need
+        self.branches = "d" if cfg.out_all else "rsd"
+        self.real_B = None
+        self.image_paths = []
+
+    def setup(self, cfg=None) -> None:
+        cfg = cfg or self.cfg
+        epoch = cfg.which_epoch
+        if epoch == "latest" and latest_epoch(cfg) and not _exists(cfg, epoch):
+            epoch = latest_epoch(cfg)
+        load_net(cfg, epoch, "G", self.net)
+        self.net.to(device=self.device, dtype=self.dtype)
+        self.net.eval().requires_grad_(False)
+
+    def set_input(self, batch: Dict) -> None:
+        b = batch["B"]
+        # rint recovers the pixels exactly from the loader's v/255*2-1
+        u8 = b if b.dtype == np.uint8 else np.rint((b + 1.0) * 127.5).astype(
+            np.uint8)
+        self.real_B = torch.from_numpy(u8).to(self.device)
+        self.image_paths = batch["B_paths"]
+
+    @torch.inference_mode()
+    def test(self) -> Dict[str, np.ndarray]:
+        x = self.real_B.permute(0, 3, 1, 2).contiguous().to(self.dtype)
+        out = self.net(x / 127.5 - 1.0, branches=self.branches)
+        visuals = {} if self.branches == "d" else {
+            "real_B": self.real_B.cpu().numpy()}
+        for b, v in out.items():
+            u8 = ((v.float() + 1.0) * 127.5).to(torch.uint8)
+            visuals[_VISUAL[b]] = u8.permute(0, 2, 3, 1).cpu().numpy()
+        return visuals
+
+    def get_image_paths(self):
+        return self.image_paths
+
+
+def _exists(cfg, epoch) -> bool:
+    d = os.path.join(cfg.checkpoints_dir, cfg.name)
+    return any(os.path.exists(os.path.join(d, f"{epoch}_net_G.{ext}"))
+               for ext in ("pth", "msgpack"))

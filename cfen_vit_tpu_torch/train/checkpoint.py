@@ -1,0 +1,54 @@
+"""Generator checkpoint loading (counterpart of
+cfen_vit_tpu/train/checkpoint.py).
+
+Checkpoints are `<checkpoints_dir>/<name>/<epoch>_net_<net>.pth`, the
+reference's naming, so `--which_epoch N` and `latest` resolve as in the
+JAX package.  The JAX package's native msgpack trees need flax to read;
+loading them is left to a later port step (ROADMAP Queue A item 5).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..interop.torch_import import load_reference_state_dict
+
+
+def _path(cfg, epoch, net_name, ext):
+    return os.path.join(cfg.checkpoints_dir, cfg.name,
+                        f"{epoch}_net_{net_name}.{ext}")
+
+
+def load_net(cfg, epoch, net_name: str, model: nn.Module) -> None:
+    """Load `<epoch>_net_<net_name>.pth` into `model` (strict, dead
+    reference tensors dropped)."""
+    pth = _path(cfg, epoch, net_name, "pth")
+    if os.path.exists(pth):
+        sd = torch.load(pth, map_location="cpu", weights_only=True)
+        load_reference_state_dict(model, sd)
+        return
+    if os.path.exists(_path(cfg, epoch, net_name, "msgpack")):
+        raise NotImplementedError(
+            f"{_path(cfg, epoch, net_name, 'msgpack')}: msgpack checkpoints "
+            "need flax and are not readable by the port yet (ROADMAP Queue A "
+            "item 5); export a .pth with cfen_vit_tpu.interop.torch_export")
+    raise FileNotFoundError(
+        f"no checkpoint for epoch '{epoch}' net '{net_name}' under "
+        f"{os.path.dirname(pth)} (looked for .pth and .msgpack)")
+
+
+def latest_epoch(cfg, net_name: str = "G") -> Optional[str]:
+    d = os.path.join(cfg.checkpoints_dir, cfg.name)
+    if not os.path.isdir(d):
+        return None
+    eps = []
+    for f in os.listdir(d):
+        m = re.match(rf"(\w+)_net_{net_name}\.(msgpack|pth)$", f)
+        if m and m.group(1).isdigit():
+            eps.append(int(m.group(1)))
+    return str(max(eps)) if eps else None
