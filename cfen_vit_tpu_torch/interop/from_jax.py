@@ -1,5 +1,6 @@
-"""Weight bridge: a JAX generator param tree (numpy arrays) -> the port's
-state_dict (counterpart of cfen_vit_tpu/interop/torch_export.py).
+"""Weight bridge: JAX param trees (numpy arrays) -> the port's state_dicts
+(counterpart of cfen_vit_tpu/interop/torch_export.py): the generator, the
+PatchGAN discriminators and the VGG19 tower.
 
 Pure numpy with the exporter's transposes (torch_export.py _conv, _convT,
 _linear, _an), so it never imports the JAX package.  It writes exactly the
@@ -110,4 +111,31 @@ def state_dict_from_jax(params, spec: GenSpec) -> dict:
         if "an" in tp:
             _put(sd, f"{name}.0.2", _an(tp["an"]))
         _put(sd, f"{name}.0.{5 if b != 's' else 4}", _conv(tp["conv2"]))
+    return _tensors(sd)
+
+
+def _tensors(sd):
     return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def discriminator_state_dict_from_jax(params, kind: str = "basic") -> dict:
+    """JAX define_d tree -> models/discriminator.py Discriminator keys:
+    NLayer convs sit at model.0, 2, 5, 8, ... (conv, norm, LeakyReLU per
+    block), Pixel convs at net.0, 2, 5."""
+    sd: dict = {}
+    if kind == "pixel":
+        for key, idx in (("c1", 0), ("c2", 2), ("c3", 5)):
+            _put(sd, f"net.{idx}", _conv(params[key]))
+    else:
+        for i, conv in enumerate(params["layers"]):
+            _put(sd, f"model.{0 if i == 0 else 3 * i - 1}", _conv(conv))
+    return _tensors(sd)
+
+
+def vgg_state_dict_from_jax(params) -> dict:
+    """JAX vgg19_init tree {conv{k}_{i}: {w HWIO, b}} -> losses/vgg.py VGG19
+    keys (OIHW)."""
+    sd: dict = {}
+    for name, conv in params.items():
+        _put(sd, name, _conv(conv))
+    return {k: t.float() for k, t in _tensors(sd).items()}

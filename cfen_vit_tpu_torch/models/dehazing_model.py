@@ -1,7 +1,7 @@
 """Generator wrapper for inference (counterpart of
 cfen_vit_tpu/models/dehazing_model.py).
 
-Batches arrive as NHWC from the JAX package's data loader and travel to
+Batches arrive as NHWC from the data loader (data/) and travel to
 the device as uint8; the forward normalises with x/127.5 - 1 and returns
 uint8 through the reference's truncating tensor2im.  Visuals are named
 real_B / fake_A / fake_R / fake_S as in the reference.  With --out_all the
@@ -14,7 +14,7 @@ Ported: `--model` dec_vit and test with the v3 generator.  --chop and
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -77,6 +77,17 @@ class DehazingModel:
 
     def get_image_paths(self):
         return self.image_paths
+
+
+def create_model(cfg, device: Optional[torch.device] = None):
+    """The trainer when cfg.isTrain, else the inference wrapper; on
+    `--gpu_ids`' device unless one is given."""
+    from ..config import select_device
+    device = device if device is not None else select_device(cfg.gpu_ids)
+    if cfg.isTrain:
+        from ..train.trainer import GanTrainer
+        return GanTrainer(cfg, device)
+    return DehazingModel(cfg, device)
 
 
 def _exists(cfg, epoch) -> bool:

@@ -24,6 +24,14 @@ With branches="d" (test --out_all) the forward runs only what fake_A needs:
 the R/S decoders stop after their level-2 upsample, whose output D's CFS
 reads, and the R/S level-1 blocks and tails are skipped.  (JAX leaves that
 pruning to XLA's dead-code elimination; eager PyTorch has to do it.)
+
+For training, `remat` checkpoints the regions the JAX generator_apply
+checkpoints (torch.utils.checkpoint, non-reentrant): "level" every
+encoder and decoder level, "branch" every encoder level and each decoder
+branch as one region.  Stem and tails are never checkpointed.  A forward
+that still has uninitialised ActNorms (the data-dependent init pass) runs
+without remat, as in JAX.  The JAX modes "level_dots" and "vit" were
+rejected by measurement there and are not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from dataclasses import dataclass, fields
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import cuda_stem, cuda_tail
 from ..ops.nn import ActNorm2d, conv_transpose_up2, instance_norm
@@ -128,6 +137,7 @@ class GenSpec:
 _FREE = {"name", "n_feats", "n_colors", "patch_size", "patch_dim",
          "num_heads", "num_layers", "hidden_dim_ratio", "load_size",
          "no_norm", "no_mlp", "pos_every", "no_pos"}
+REMAT_MODES = ("none", "level", "branch")
 
 
 def check_ported(spec: GenSpec) -> None:
@@ -260,9 +270,43 @@ class Generator(nn.Module):
         conv7 = slots[-2]
         return cuda_tail.tail_epilogue(F.relu(t2), conv7.weight, conv7.bias)
 
-    def forward(self, x: torch.Tensor, branches: str = "rsd"):
+    def actnorms_ready(self) -> bool:
+        return all(m.ready() for m in self.modules()
+                   if isinstance(m, ActNorm2d))
+
+    def _decode_branch(self, b, enc, us, full, level):
+        """Levels 3, 2 (and 1 if `full`) of one decoder branch; `us` holds
+        the R/S upsamples D's CFS reads.  Returns (level-1 output or None,
+        {3: upsample, 2: upsample})."""
+        cur, us_b = enc[3], {}
+        for lvl in (3, 2):
+            cur = level(cur, "decoder", "d", lvl, b)
+            u = us_b[lvl] = self._upsample(cur, lvl, b)
+            if b == "d":
+                cfs = getattr(self, f"cfsm2g_d0{lvl}d")[0]
+                cur = cfs(u, us["r", lvl], us["s", lvl])
+            elif full or lvl == 3:
+                sk = getattr(self, f"sk_conv_d0{lvl}{b}")
+                cur = F.relu(sk(torch.cat([u, enc[lvl - 1]], dim=1)))
+        d1 = level(cur, "decoder", "d", 1, b) if full else None
+        return d1, us_b
+
+    def forward(self, x: torch.Tensor, branches: str = "rsd",
+                remat: str = "none"):
         if branches not in ("rsd", "d"):
             raise ValueError(f"branches must be 'rsd' or 'd', got {branches!r}")
+        if remat not in REMAT_MODES:
+            raise NotImplementedError(
+                f"remat mode {remat!r}: the port has {REMAT_MODES} (the JAX "
+                "modes level_dots and vit were rejected by measurement)")
+        if remat != "none" and not self.actnorms_ready():
+            remat = "none"      # the init pass sees real statistics
+
+        def ckpt(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False)
+
+        level = self._level if remat == "none" else (
+            lambda *args: ckpt(self._level, *args))
         conv5, res = self.head[0][0], self.head[0][1].body
         xf = cuda_stem.fused_stem(x.contiguous(), conv5.weight, conv5.bias,
                                   res[0].weight, res[0].bias, res[2].weight,
@@ -274,23 +318,19 @@ class Generator(nn.Module):
             if lvl > 1:
                 cur = F.relu(instance_norm(
                     getattr(self, f"ds_conv_e0{lvl}")(cur)))
-            cur = enc[lvl] = self._level(cur, "encoder", "e", lvl)
+            cur = enc[lvl] = level(cur, "encoder", "e", lvl)
 
         us, d1 = {}, {}
         for b in "rsd":
             full = b in branches
-            cur = enc[3]
-            for lvl in (3, 2):
-                cur = self._level(cur, "decoder", "d", lvl, b)
-                u = us[b, lvl] = self._upsample(cur, lvl, b)
-                if b == "d":
-                    cfs = getattr(self, f"cfsm2g_d0{lvl}d")[0]
-                    cur = cfs(u, us["r", lvl], us["s", lvl])
-                elif full or lvl == 3:
-                    sk = getattr(self, f"sk_conv_d0{lvl}{b}")
-                    cur = F.relu(sk(torch.cat([u, enc[lvl - 1]], dim=1)))
+            if remat == "branch":
+                out_b, us_b = ckpt(self._decode_branch, b, enc, us, full,
+                                   self._level)
+            else:
+                out_b, us_b = self._decode_branch(b, enc, us, full, level)
+            us.update({(b, lvl): u for lvl, u in us_b.items()})
             if full:
-                d1[b] = self._level(cur, "decoder", "d", 1, b)
+                d1[b] = out_b
 
         out = {}
         for b in d1:

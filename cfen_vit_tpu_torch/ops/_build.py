@@ -2,9 +2,10 @@
 
 On first use, `library()` compiles every `csrc/*.cu` with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c
 
+one nvcc process per source, all started together, and links the objects
 into one shared library under `cfen_vit_tpu_torch/_build/` (git-ignored),
 named by a hash of the sources and flags so an edited source rebuilds.
 ptxas' register and shared-memory report lands beside it as `<lib>.log`.
@@ -33,7 +34,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes (pointers, ints, dtype code, stream)
@@ -42,6 +43,10 @@ _SIGNATURES = {
     "cfen_tail_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cfen_stem_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _P],
+    "cfen_mrf_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cfen_mrf_bwd_do": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P],
+    "cfen_mrf_bwd_dt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -68,14 +73,34 @@ def _build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout
-                                       + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
+    work = BUILD_DIR / f"{lib.stem}.{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources:
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+               str(work / f"{src.stem}.o")]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    link = [nvcc, "-shared", "-o", str(work / lib.name),
+            *(str(work / f"{src.stem}.o") for src in sources)]
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} ({proc.returncode}):\n{out}")
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr}")
+    lib.with_suffix(".log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(work / lib.name, lib)
+    shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -110,8 +135,7 @@ def dtype_code(t: torch.Tensor) -> int:
 
 def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
     """What every kernel needs: contiguous CUDA tensors of one float32 or
-    bfloat16 dtype on one device, with no autograd to record (the kernels
-    are forward only)."""
+    bfloat16 dtype on one device."""
     t0 = tensors[0]
     for t in tensors:
         if t.device.type != "cuda" or t.device != t0.device:
@@ -122,9 +146,18 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
                             f"got {t.dtype} and {t0.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel is forward only; run it "
-                           "under torch.no_grad() or inference_mode()")
+
+
+def recompute_vjp(plain, inputs, needs_grad, g) -> tuple:
+    """A kernel's backward: run `plain` on `inputs` again under autograd and
+    return its vector-Jacobian product with `g`, None where no gradient is
+    needed."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(inputs, needs_grad)]
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(plain(*leaves), wanted, g))
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
 
 def stream(t: torch.Tensor) -> int:

@@ -10,7 +10,10 @@ logits in shared memory, so the kernel makes two passes over the keys
 
 `block_attention` runs `attention_core`, the plain version (JAX
 models/vit.py attention_core), for CPU tensors and the kernel for CUDA
-tensors; a CUDA input the kernel does not take raises.
+tensors; a CUDA input the kernel does not take raises.  Under autograd the
+kernel's backward recomputes through `attention_core` and returns its
+vector-Jacobian product (the JAX kernel has no VJP: it is off by default
+there, so this recompute is the port's choice).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from . import _build
 
 launches = 0          # kernel launches since the last reset
+recomputes = 0        # backward recomputes through attention_core
 HEAD_DIMS = (16, 24, 64, 96)   # the kernel's instantiations (csrc/attn.cu)
 MAX_SEQ = 1024        # the [32, S] logits block must fit in shared memory
 
@@ -54,7 +58,24 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v: [N, S, E] -> [N, S, E]."""
     if q.device.type == "cpu":
         return attention_core(q, k, v, num_heads)
-    return _launch(q, k, v, num_heads)
+    return _Attention.apply(q, k, v, num_heads)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return _launch(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        global recomputes
+        recomputes += 1
+        grads = _build.recompute_vjp(
+            lambda q, k, v: attention_core(q, k, v, ctx.num_heads),
+            ctx.saved_tensors, ctx.needs_input_grad, g)
+        return (*grads, None)
 
 
 def _launch(q, k, v, num_heads):

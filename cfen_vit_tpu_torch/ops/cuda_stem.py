@@ -11,7 +11,9 @@ header.
 
 `fused_stem` runs `stem_plain` (JAX models/generator.py _stem_plain) for
 CPU tensors and the kernel for CUDA tensors; a CUDA input the kernel does
-not take raises.
+not take raises.  Under autograd the kernel's backward recomputes through
+`stem_plain` and returns its vector-Jacobian product, as the JAX package's
+custom VJP does (generator.py _stem_fused_bwd).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from . import _build
 
 launches = 0          # kernel launches since the last reset
+recomputes = 0        # backward recomputes through stem_plain
 
 
 def stem_plain(x, w5, b5, w1, b1, w2, b2):
@@ -34,7 +37,21 @@ def stem_plain(x, w5, b5, w1, b1, w2, b2):
 def fused_stem(x, w5, b5, w1, b1, w2, b2):
     if x.device.type == "cpu":
         return stem_plain(x, w5, b5, w1, b1, w2, b2)
-    return _launch(x, w5, b5, w1, b1, w2, b2)
+    return _Stem.apply(x, w5, b5, w1, b1, w2, b2)
+
+
+class _Stem(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _launch(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        global recomputes
+        recomputes += 1
+        return _build.recompute_vjp(stem_plain, ctx.saved_tensors,
+                                    ctx.needs_input_grad, g)
 
 
 def _launch(x, w5, b5, w1, b1, w2, b2):

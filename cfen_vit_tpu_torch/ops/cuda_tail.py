@@ -9,7 +9,10 @@ copy is made.  See the source's header.
 
 `tail_epilogue` runs `tail_plain` (JAX models/generator.py
 _tail_epilogue_plain) for CPU tensors and the kernel for CUDA tensors; a
-CUDA input the kernel does not take raises.
+CUDA input the kernel does not take raises.  Under autograd the kernel's
+backward recomputes through `tail_plain` and returns its vector-Jacobian
+product, as the JAX package's custom VJP does (generator.py
+_tail_epilogue_bwd).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from . import _build
 
 launches = 0          # kernel launches since the last reset
+recomputes = 0        # backward recomputes through tail_plain
 
 
 def tail_plain(t2: torch.Tensor, w: torch.Tensor,
@@ -32,7 +36,21 @@ def tail_epilogue(t2: torch.Tensor, w: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     if t2.device.type == "cpu":
         return tail_plain(t2, w, b)
-    return _launch(t2, w, b)
+    return _Tail.apply(t2, w, b)
+
+
+class _Tail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t2, w, b):
+        ctx.save_for_backward(t2, w, b)
+        return _launch(t2, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        global recomputes
+        recomputes += 1
+        return _build.recompute_vjp(tail_plain, ctx.saved_tensors,
+                                    ctx.needs_input_grad, g)
 
 
 def _launch(t2, w, b):

@@ -73,10 +73,13 @@ class ActNorm2d(nn.Module):
         self.weight.copy_(-0.5 * torch.log(var.clamp_min(0.2)))
         self.initialized.fill_(1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def ready(self) -> bool:
         if self._ready is None:
             self._ready = bool(self.initialized)
-        if not self._ready:
+        return self._ready
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.ready():
             self._init_from(x)
             self._ready = True
         b = self.bias.to(x.dtype)[None, :, None, None]

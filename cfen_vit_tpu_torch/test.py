@@ -8,8 +8,7 @@
 Same flags and outputs as test.py: `<dataroot>/hazy/*` in,
 `<results_dir>/<name>/<phase>_<which_epoch>/images/<img>_<label>.png` and
 an index.html out.  `--gpu_ids 0` runs on cuda:0 (and raises without
-CUDA), `--gpu_ids -1` on the CPU.  The data loader and the image writers
-are the JAX package's own, which import no JAX.
+CUDA), `--gpu_ids -1` on the CPU.
 """
 
 from __future__ import annotations
@@ -21,13 +20,13 @@ import time
 
 def main(argv=None) -> dict:
     """Runs the CLI; returns the image count and timings it prints."""
-    from cfen_vit_tpu.data import create_dataloader
-    from cfen_vit_tpu.utils import HTML, save_images
     from cfen_vit_tpu_torch.config import (parse_args, select_device,
                                            set_precision)
+    from cfen_vit_tpu_torch.data import create_dataloader
     from cfen_vit_tpu_torch.models.dehazing_model import DehazingModel
+    from cfen_vit_tpu_torch.utils import HTML, save_images
 
-    cfg = parse_args(argv)
+    cfg = parse_args(argv, is_train=False)
     device = select_device(cfg.gpu_ids)
     set_precision(cfg.precision)
     dataset = create_dataloader(cfg).load_data()

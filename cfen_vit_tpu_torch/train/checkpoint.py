@@ -1,10 +1,14 @@
-"""Generator checkpoint loading (counterpart of
+"""Checkpoint save and load (counterpart of
 cfen_vit_tpu/train/checkpoint.py).
 
-Checkpoints are `<checkpoints_dir>/<name>/<epoch>_net_<net>.pth`, the
-reference's naming, so `--which_epoch N` and `latest` resolve as in the
-JAX package.  The JAX package's native msgpack trees need flax to read;
-loading them is left to a later port step (ROADMAP Queue A item 5).
+Networks are `<checkpoints_dir>/<name>/<epoch>_net_<net>.pth` state_dicts,
+the reference's naming, so `--which_epoch N` and `latest` resolve as in
+the JAX package and `load_net` reads them back strictly.  The training
+state (`<tag>_train_state.pt`) adds the Adam moments and step counts and
+the ImagePool generator's state, so a resumed run continues exactly; the
+pools themselves are not kept (the JAX package keeps none either).  The
+JAX package's native msgpack trees need flax to read and are not readable
+by the port (ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
@@ -24,6 +28,13 @@ def _path(cfg, epoch, net_name, ext):
                         f"{epoch}_net_{net_name}.{ext}")
 
 
+def save_net(cfg, epoch, net_name: str, model: nn.Module) -> str:
+    path = _path(cfg, epoch, net_name, "pth")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(model.state_dict(), path)
+    return path
+
+
 def load_net(cfg, epoch, net_name: str, model: nn.Module) -> None:
     """Load `<epoch>_net_<net_name>.pth` into `model` (strict, dead
     reference tensors dropped)."""
@@ -40,6 +51,23 @@ def load_net(cfg, epoch, net_name: str, model: nn.Module) -> None:
     raise FileNotFoundError(
         f"no checkpoint for epoch '{epoch}' net '{net_name}' under "
         f"{os.path.dirname(pth)} (looked for .pth and .msgpack)")
+
+
+def _state_path(cfg, tag) -> str:
+    return os.path.join(cfg.checkpoints_dir, cfg.name,
+                        f"{tag}_train_state.pt")
+
+
+def save_train_state(cfg, tag: str, state: dict) -> str:
+    path = _state_path(cfg, tag)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(state, path)
+    return path
+
+
+def load_train_state(cfg, tag: str, device=None) -> dict:
+    return torch.load(_state_path(cfg, tag), map_location=device,
+                      weights_only=True)
 
 
 def latest_epoch(cfg, net_name: str = "G") -> Optional[str]:

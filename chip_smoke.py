@@ -9,17 +9,32 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      CUDA and nvcc versions, whether Pillow imports;
   2. build: compiles cfen_vit_tpu_torch/csrc/*.cu (ops/_build.py);
   3. kernels: K1 attention at the six ViT shapes of the canonical v3 model
-     at batch 4, K3 tail and K4 stem at 512x512, in float32 and bfloat16,
-     each against its plain PyTorch version on the card (max abs error,
-     tolerance, median CUDA-event times);
-  4. end to end: a seeded full-width v3 model (n_feats 24,
+     at batch 4, K3 tail and K4 stem at 512x512, K5's forward, do and dt
+     kernels at the ID-MRF shapes of a 512x512 batch of 4 ([4,16384,256]
+     relu3_1, [4,4096,512] relu4_1), in float32 and bfloat16, each against
+     its plain PyTorch version on the card (max abs error, tolerance,
+     median CUDA-event times, the card's bound; K1 also beside
+     F.scaled_dot_product_attention); then MrfCore against the dense
+     mrf_core_plain on value and both grads, and the K1, K3 and K4
+     autograd Functions' grads against the plain versions' autograd;
+  4. inference end to end: a seeded full-width v3 model (n_feats 24,
      hidden_dim_ratio 4, patch 32, loadSize 256) with its ActNorms
      initialised on the first batch, saved as 1_net_G.pth, then
      `cfen_vit_tpu_torch.test --out_all --batchSize 4 --gpu_ids 0` over 8
      seeded 512x512 hazy PNGs, in float32 and bfloat16.  It checks the
-     PNGs, that every kernel launched during the CLI run, that fake_A is
-     within 2/255 of the same model on the plain path, and that bfloat16
-     is above 35 dB PSNR against float32.
+     PNGs, that every kernel of the path launched during the CLI run, that
+     fake_A is within 2/255 of the same model on the plain path, and that
+     bfloat16 is above 35 dB PSNR against float32;
+  5. training end to end: `cfen_vit_tpu_torch.train.cli.main` (--model
+     dec_vit, the canonical v3 flags, --batchSize 4 --niter 1
+     --niter_decay 1: 4 steps over 2 epochs) on 8 seeded 512x512
+     hazy/clear/r/s quadruples, in float32 and bfloat16.  It checks that
+     every G and D loss is finite, that G and D moved, that every kernel
+     of the path launched (K1, K3, K4, K5 forward, do, dt) and the K1, K3,
+     K4 backward recomputes ran, that the checkpoints exist, and that
+     `cfen_vit_tpu_torch.test --out_all --which_epoch 2` reads the trained
+     generator and writes 8 non-constant fake_A PNGs; it prints the steady
+     s/step after step 0 and the peak device memory.
 
 The last two lines are a JSON object of the kernels' results and
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints neither.
@@ -54,7 +69,25 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
              "cfen_vit_tpu/ops/pallas_tail.py:69"),
     "stem": ("cfen_vit_tpu_torch/csrc/stem.cu",
              "cfen_vit_tpu/ops/pallas_stem.py:127"),
+    "mrf_fwd": ("cfen_vit_tpu_torch/csrc/mrf.cu",
+                "cfen_vit_tpu/ops/pallas_mrf.py:152"),
+    "mrf_bwd_do": ("cfen_vit_tpu_torch/csrc/mrf.cu",
+                   "cfen_vit_tpu/ops/pallas_mrf.py:266"),
+    "mrf_bwd_dt": ("cfen_vit_tpu_torch/csrc/mrf.cu",
+                   "cfen_vit_tpu/ops/pallas_mrf.py:287"),
 }
+# the ID-MRF layers of a 512x512 batch of 4: relu3_1 and relu4_1
+MRF_SHAPES = ((BATCH, (SIDE // 4) ** 2, 256), (BATCH, (SIDE // 8) ** 2, 512))
+# K5 against its twins.  Forward statistics: both sum cos in float32 from
+# the same inputs, in another order (rtol 1e-4); an index may differ only
+# where its value ties the twin's within that tolerance.  do/dt: float32
+# sums over P terms in another order; bf16 outputs by a rounding flip;
+# atol is that share of the largest |value|.
+MRF_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 1e-2)}
+# the card's published peaks (H100 SXM, dense): float32 outside the
+# tensor cores, bf16 tensor cores, HBM3
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES = 3.35e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -108,14 +141,29 @@ def time_ms(torch, fn, reps=20, warmup=3) -> float:
     return statistics.median(times)
 
 
+def bound_ms(flops: float, nbytes: float, dtype: str):
+    """The least time the card could take: the larger of the operations
+    over the peak rate for the inputs' type and the bytes over HBM's."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def kernel_cases(torch, spec):
-    """(kernel, label, wrapper, plain, args) at the main path's shapes."""
+    """(kernel, label, wrapper, plain, args, flops, bytes per element size,
+    library call or None) at the main path's shapes."""
+    import torch.nn.functional as F
     from cfen_vit_tpu_torch.ops import cuda_attn, cuda_stem, cuda_tail
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
 
     def randn(*shape, std=1.0):
         return torch.randn(shape, generator=g, device=dev) * std
+
+    def sdpa(q, k, v, h):
+        n, s, e = q.shape
+        heads = [t.view(n, s, h, e // h).transpose(1, 2) for t in (q, k, v)]
+        return F.scaled_dot_product_attention(*heads)
 
     cases = []
     for lvl in (1, 2, 3):
@@ -128,28 +176,45 @@ def kernel_cases(torch, spec):
             args = [randn(n, s, e) for _ in range(3)] + [vs.num_heads]
             cases.append(("attention", f"{label} [{n},{s},{e}] h{vs.num_heads}",
                           cuda_attn.block_attention, cuda_attn.attention_core,
-                          args))
+                          args, 4.0 * n * s * s * e, 4.0 * n * s * e, sdpa))
     for out_c in (3, 1):
         t2 = torch.relu(randn(BATCH, 12, SIDE, SIDE))
         args = [t2, randn(out_c, 12, 7, 7, std=(2 / 588) ** 0.5),
                 randn(out_c, std=0.1)]
+        px = BATCH * SIDE * SIDE
         cases.append(("tail", f"[{BATCH},12,{SIDE},{SIDE}] -> {out_c}",
-                      cuda_tail.tail_epilogue, cuda_tail.tail_plain, args))
+                      cuda_tail.tail_epilogue, cuda_tail.tail_plain, args,
+                      2.0 * px * 12 * 49 * out_c, px * (12 + out_c), None))
     x = torch.rand((BATCH, 3, SIDE, SIDE), generator=g, device=dev) * 2 - 1
     args = [x, randn(12, 3, 5, 5, std=(2 / 75) ** 0.5), randn(12, std=0.1),
             randn(12, 12, 3, 3, std=(2 / 108) ** 0.5), randn(12, std=0.1),
             randn(12, 12, 3, 3, std=(2 / 108) ** 0.5), randn(12, std=0.1)]
+    px = BATCH * SIDE * SIDE
     cases.append(("stem", f"[{BATCH},3,{SIDE},{SIDE}] -> 12",
-                  cuda_stem.fused_stem, cuda_stem.stem_plain, args))
+                  cuda_stem.fused_stem, cuda_stem.stem_plain, args,
+                  2.0 * px * (3 * 25 * 12 + 2 * 12 * 9 * 12), px * 15, None))
     return cases
 
 
-def phase_kernels(torch, spec):
-    """Each kernel against its plain version; returns per (kernel, dtype)
-    the max error and summed median times over the shapes."""
-    results, failures = {}, []
+def _record(results, kernel, dn, err, ms, plain_ms, bound, library_ms=None):
+    r = results.setdefault((kernel, dn), {
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        "bound_by": bound[1], "library_ms": None})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["bound_ms"] += bound[0]
+    if library_ms is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+
+
+def phase_kernels(torch, spec, results):
+    """K1, K3, K4 against their plain versions; adds per (kernel, dtype)
+    the max error and the summed times and bounds over the shapes."""
+    failures = []
     with torch.inference_mode():
-        for kernel, label, wrapper, plain, args in kernel_cases(torch, spec):
+        for (kernel, label, wrapper, plain, args, flops, elems,
+             library) in kernel_cases(torch, spec):
             for dtype in (torch.float32, torch.bfloat16):
                 dn = str(dtype).split(".")[-1]
                 a = [t.to(dtype) if isinstance(t, torch.Tensor) else t
@@ -164,30 +229,216 @@ def phase_kernels(torch, spec):
                                          rtol=rtol))
                 ms = time_ms(torch, lambda: wrapper(*a))
                 plain_ms = time_ms(torch, lambda: plain(*a))
+                lib_ms = library and time_ms(torch, lambda: library(*a))
+                bound = bound_ms(flops, elems * a[0].element_size(), dn)
+                lib = f", library {lib_ms:.4f} ms" if library else ""
                 log("kernel", f"{kernel} {label} {dn}: max_abs_err {err:.3g} "
                     f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}; "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-                r = results.setdefault((kernel, dn), {"max_abs_err": 0.0,
-                                                      "ms": 0.0,
-                                                      "plain_ms": 0.0})
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                r["ms"] += ms
-                r["plain_ms"] += plain_ms
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+                    f"bound {bound[0]:.4f} ms ({bound[1]})")
+                _record(results, kernel, dn, err, ms, plain_ms, bound,
+                        lib_ms or None)
                 if not ok:
                     failures.append(f"{kernel} {label} {dn}")
     if failures:
         raise AssertionError(f"kernels disagree with plain: {failures}")
-    return results
 
 
-def write_hazy_pngs(root: str) -> list:
-    """Seeded smooth scenes through the atmospheric scattering model
-    I = J t + A (1 - t), as uint8 PNGs under root/hazy/."""
+def _mrf_inputs(torch, n, p, c, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.nn.functional.normalize(
+        torch.randn(n, p, c, generator=g, device="cuda"), dim=-1).to(dtype)
+        for _ in range(2)]
+
+
+def _mrf_cotangent_inputs(torch, stats, p):
+    """dk, dz as MrfCore's backward forms them for an upstream grad of 1."""
+    m, z, _, k, q_star = stats
+    n = k.shape[0]
+    dk = (-1.0 / (k.mean(dim=1) * p)).contiguous()
+    offs = torch.arange(n, device=k.device)[:, None] * p
+    sum_kq = torch.zeros(n * p, device=k.device).index_add_(
+        0, (q_star + offs).reshape(-1), k.reshape(-1)).view(n, p)
+    return dk, (-dk[:, None] * sum_kq / z).contiguous()
+
+
+def _check_mrf_stats(torch, o, t, got, ref):
+    """Float statistics within rtol 1e-4; each index that differs from the
+    twin's must tie it in value (cd for p*, cs for q*) within 1e-4."""
+    from cfen_vit_tpu_torch.ops import cuda_mrf as M
+    err, ok = 0.0, True
+    for a, b in ((got[0], ref[0]), (got[1], ref[1]), (got[3], ref[3])):
+        err = max(err, (a - b).abs().max().item())
+        ok &= bool(torch.allclose(a, b, rtol=1e-4, atol=1e-6))
+    m, z = ref[0], ref[1]
+    of, tf = o.float(), t.float()
+    pk, pr = got[2], ref[2]
+    nq, qq = torch.nonzero(pk != pr, as_tuple=True)
+    cd_k = M._cdist((of[nq, qq] * tf[nq, pk[nq, qq]]).sum(-1))
+    cd_r = M._cdist((of[nq, qq] * tf[nq, pr[nq, qq]]).sum(-1))
+    ok &= bool(torch.allclose(cd_k, cd_r, rtol=1e-4, atol=1e-6))
+    qk, qr = got[4], ref[4]
+    nn_, pp = torch.nonzero(qk != qr, as_tuple=True)
+
+    def cs(q):
+        cd = M._cdist((of[nn_, q] * tf[nn_, pp]).sum(-1))
+        return M._exp_term(cd, m[nn_, q]) / z[nn_, q]
+    ok &= bool(torch.allclose(cs(qk[nn_, pp]), cs(qr[nn_, pp]), rtol=1e-4,
+                              atol=1e-9))
+    return err, ok, len(nq) + len(nn_)
+
+
+def phase_mrf_kernels(torch, results):
+    """K5's three kernels against their twins at the ID-MRF shapes."""
+    from cfen_vit_tpu_torch.ops import cuda_mrf as M
+    failures = []
+    with torch.inference_mode():
+        for n, p, c in MRF_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[-1]
+                o, t = _mrf_inputs(torch, n, p, c, dtype, SEED)
+                item = o.element_size()
+                stat_bytes = n * p * (4 + 4 + 8 + 4 + 8)
+                got = M.mrf_forward_stats(o, t)
+                torch.cuda.synchronize()
+                ref = M.mrf_forward_stats_plain(o, t)
+                err, ok, flips = _check_mrf_stats(torch, o, t, got, ref)
+                ms = time_ms(torch, lambda: M.mrf_forward_stats(o, t), 5, 1)
+                plain_ms = time_ms(torch, lambda: M.mrf_forward_stats_plain(
+                    o, t), 5, 1)
+                bound = bound_ms(2.0 * n * p * p * c,
+                                 2 * n * p * c * item + stat_bytes, dn)
+                log("kernel", f"mrf_fwd [{n},{p},{c}] {dn}: max_abs_err "
+                    f"{err:.3g} (rtol 1e-4, atol 1e-6; {flips} index ties) "
+                    f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+                _record(results, "mrf_fwd", dn, err, ms, plain_ms, bound)
+                if not ok:
+                    failures.append(f"mrf_fwd [{n},{p},{c}] {dn}")
+                m, z, _, k, q_star = ref
+                dk, dz = _mrf_cotangent_inputs(torch, ref, p)
+                args = (o, t, m, z, dz, q_star, dk)
+                rtol, frac = MRF_TOL[dn]
+                for name, kern, twin in (
+                        ("mrf_bwd_do", M.mrf_bwd_do, M.mrf_bwd_do_plain),
+                        ("mrf_bwd_dt", M.mrf_bwd_dt, M.mrf_bwd_dt_plain)):
+                    outs = kern(*args)
+                    torch.cuda.synchronize()
+                    refs = twin(*args)
+                    outs = outs if isinstance(outs, tuple) else (outs,)
+                    refs = refs if isinstance(refs, tuple) else (refs,)
+                    err, ok = 0.0, True
+                    for a, b in zip(outs, refs):
+                        a, b = a.float(), b.float()
+                        atol = frac * b.abs().max().item()
+                        err = max(err, (a - b).abs().max().item())
+                        ok &= bool(torch.allclose(a, b, rtol=rtol, atol=atol))
+                    ms = time_ms(torch, lambda: kern(*args), 5, 1)
+                    plain_ms = time_ms(torch, lambda: twin(*args), 5, 1)
+                    bound = bound_ms(4.0 * n * p * p * c,
+                                     3 * n * p * c * item + stat_bytes, dn)
+                    log("kernel", f"{name} [{n},{p},{c}] {dn}: max_abs_err "
+                        f"{err:.3g} (rtol {rtol}, atol {frac} x max) "
+                        f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, "
+                        f"plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
+                        f"({bound[1]})")
+                    _record(results, name, dn, err, ms, plain_ms, bound)
+                    if not ok:
+                        failures.append(f"{name} [{n},{p},{c}] {dn}")
+    if failures:
+        raise AssertionError(f"K5 kernels disagree with their twins: "
+                             f"{failures}")
+
+
+def _grads(torch, fn, args, seed=9):
+    leaves = [a.detach().clone().requires_grad_() if isinstance(
+        a, torch.Tensor) else a for a in args]
+    out = fn(*leaves)
+    if out.dim() == 0:
+        cot = torch.ones_like(out)
+    else:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        cot = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+    grads = torch.autograd.grad(out, [a for a in leaves if isinstance(
+        a, torch.Tensor)], cot)
+    return out, grads
+
+
+def phase_autograd(torch, spec):
+    """MrfCore against the dense plain core, and K1, K3, K4 under autograd
+    against their plain versions' autograd, on value and grads."""
+    from cfen_vit_tpu_torch.ops import cuda_mrf as M
+    cases = []
+    for n, p, c in MRF_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((f"MrfCore [{n},{p},{c}]", dtype, M.mrf_core,
+                          M.mrf_core_plain,
+                          _mrf_inputs(torch, n, p, c, dtype, SEED + 1)))
+    picks = {"attention": "LViT L1", "tail": "-> 3", "stem": "-> 12"}
+    for (kernel, label, wrapper, plain, args, *_rest) in kernel_cases(
+            torch, spec):
+        if picks[kernel] in label:
+            for dtype in (torch.float32, torch.bfloat16):
+                cases.append((f"{kernel} {label}", dtype, wrapper, plain,
+                              [a.to(dtype) if isinstance(a, torch.Tensor)
+                               else a for a in args]))
+    failures = []
+    for label, dtype, fn, plain, args in cases:
+        dn = str(dtype).split(".")[-1]
+        out, grads = _grads(torch, fn, args)
+        ref, ref_grads = _grads(torch, plain, args)
+        rtol, frac = MRF_TOL[dn]
+        if fn is M.mrf_core:
+            # an argmin or argmax near-tie may resolve to another index in
+            # the kernel than in torch.min/max, which moves that row's or
+            # column's cotangent whole; so the MRF grads are held in
+            # relative norm (1e-4 float32, 1e-2 bf16), with the flips shown
+            got_st = M.mrf_forward_stats(*args)
+            ref_st = M.mrf_forward_stats_plain(*args)
+            flips = [int((got_st[i] != ref_st[i]).sum()) for i in (2, 4)]
+            bar = 1e-4 if dtype == torch.float32 else 1e-2
+            err = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                      for a, b in zip(grads, ref_grads))
+            ok = (abs(out.item() - ref.item()) <= 1e-4 * abs(ref.item())
+                  and err < bar)
+            log("autograd", f"{label} {dn}: value {out.item():.6g} vs "
+                f"{ref.item():.6g}, grads relative norm err {err:.3g} (bar "
+                f"{bar}; p*, q* index flips {flips}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{label} {dn}")
+            continue
+        grad_atol = [frac * b.float().abs().max().item() for b in ref_grads]
+        atol, vrtol = TOL[dn]
+        ok = bool(torch.allclose(out.float(), ref.float(), atol=atol,
+                                 rtol=vrtol))
+        err = 0.0
+        for a, b, atol in zip(grads, ref_grads, grad_atol):
+            a, b = a.float(), b.float()
+            err = max(err, ((a - b).abs().max() / b.abs().max()).item())
+            ok &= bool(torch.allclose(a, b, rtol=rtol, atol=atol))
+        log("autograd", f"{label} {dn}: value {out.float().sum().item():.6g} "
+            f"vs {ref.float().sum().item():.6g}, grads max err / max "
+            f"{err:.3g} (rtol {rtol}, atol "
+            f"{', '.join(f'{x:.3g}' for x in grad_atol)}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label} {dn}")
+        del out, grads, ref, ref_grads
+    if failures:
+        raise AssertionError(f"autograd disagrees with plain: {failures}")
+
+
+def write_hazy_pngs(root: str, train: bool = False) -> list:
+    """Seeded smooth scenes J with transmission t through the atmospheric
+    scattering model I = J t + A (1 - t), as uint8 PNGs under root/hazy/;
+    with `train` also J under clear/ and r/ and t under s/."""
     from PIL import Image
     import torch
     import torch.nn.functional as F
     rng = np.random.RandomState(SEED)
-    os.makedirs(os.path.join(root, "hazy"))
+    dirs = ("hazy", "clear", "r", "s") if train else ("hazy",)
+    for d in dirs:
+        os.makedirs(os.path.join(root, d))
     paths = []
     for i in range(N_IMAGES):
         low = torch.from_numpy(rng.rand(1, 4, 16, 16).astype(np.float32))
@@ -195,9 +446,15 @@ def write_hazy_pngs(root: str) -> list:
                            align_corners=False)[0].numpy()
         scene, t = up[:3].transpose(1, 2, 0), 0.3 + 0.6 * up[3][..., None]
         hazy = scene * t + 0.9 * (1 - t) + rng.randn(SIDE, SIDE, 3) * 0.01
-        path = os.path.join(root, "hazy", f"hazy_{i:02d}.png")
-        Image.fromarray(np.clip(hazy * 255, 0, 255).astype(np.uint8)).save(path)
-        paths.append(path)
+        images = {"hazy": hazy, "clear": scene, "r": scene,
+                  "s": np.repeat(t, 3, axis=2)}
+        for d in dirs:
+            path = os.path.join(root, d, f"im_{i:02d}.png" if train
+                                else f"hazy_{i:02d}.png")
+            Image.fromarray(np.clip(images[d] * 255, 0, 255).astype(
+                np.uint8)).save(path)
+        paths.append(os.path.join(root, "hazy", f"im_{i:02d}.png" if train
+                                  else f"hazy_{i:02d}.png"))
     return paths
 
 
@@ -267,7 +524,8 @@ def phase_e2e(torch, spec):
                 raise AssertionError(f"{dtype}: a fake_A PNG is constant")
             outputs[dtype] = imgs.astype(np.float64)
 
-            model = DehazingModel(parse_args(argv(dtype)), torch.device("cuda"))
+            model = DehazingModel(parse_args(argv(dtype), is_train=False),
+                                  torch.device("cuda"))
             model.setup()
             model.set_input({"B": first, "B_paths": paths[:BATCH]})
             model.test()   # warm
@@ -303,6 +561,120 @@ def phase_e2e(torch, spec):
     return launches
 
 
+def _counters():
+    from cfen_vit_tpu_torch.ops import cuda_attn, cuda_mrf, cuda_stem, cuda_tail
+    return {"attention": (cuda_attn, "launches"), "tail": (cuda_tail, "launches"),
+            "stem": (cuda_stem, "launches"), "mrf_fwd": (cuda_mrf, "fwd_launches"),
+            "mrf_bwd_do": (cuda_mrf, "do_launches"),
+            "mrf_bwd_dt": (cuda_mrf, "dt_launches"),
+            "attention recomputes": (cuda_attn, "recomputes"),
+            "tail recomputes": (cuda_tail, "recomputes"),
+            "stem recomputes": (cuda_stem, "recomputes")}
+
+
+def phase_train(torch, spec):
+    """The GAN training step through its CLI, in float32 and bfloat16; returns
+    the launch counts of each run."""
+    from cfen_vit_tpu_torch import test as test_cli
+    from cfen_vit_tpu_torch.config import parse_args
+    from cfen_vit_tpu_torch.train.cli import main as train_main
+    from cfen_vit_tpu_torch.train.trainer import GanTrainer
+
+    counters = _counters()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=REPO) as tmp:
+        write_hazy_pngs(os.path.join(tmp, "data"), train=True)
+        for dtype in ("float32", "bfloat16"):
+            ckpt = os.path.join(tmp, f"ckpt_{dtype}")
+            argv = ["--dataroot", os.path.join(tmp, "data"), "--name", "train",
+                    "--checkpoints_dir", ckpt,
+                    "--model", "dec_vit", "--dataset_mode", "dec_vit",
+                    "--model_G", spec.name, "--n_feats", str(spec.n_feats),
+                    "--hidden_dim_ratio", str(spec.hidden_dim_ratio),
+                    "--patch_size", str(spec.patch_size),
+                    "--loadSize", str(spec.load_size), "--sb",
+                    "--batchSize", str(BATCH), "--niter", "1",
+                    "--niter_decay", "1", "--gpu_ids", "0",
+                    "--print_freq", str(BATCH), "--compute_dtype", dtype]
+            fresh = GanTrainer(parse_args(argv, save_opt=False),
+                               torch.device("cuda"))   # the same seeded init
+            start = {k: v.clone() for k, v in fresh.g.state_dict().items()}
+            start.update({f"D.{k}": v.clone()
+                          for k, v in fresh.d.state_dict().items()})
+            del fresh
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            t0 = time.perf_counter()
+            run = train_main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[dtype] = {k: getattr(mod, attr)
+                               for k, (mod, attr) in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps = run["step_seconds"]
+            log("train", f"{dtype}: {len(steps)} steps in {seconds:.2f} s "
+                f"(run incl. data, checkpoints, LR updates); step seconds "
+                f"{[round(x, 4) for x in steps]}; steady "
+                f"{statistics.mean(steps[1:]):.4f} s/step after step 0; peak "
+                f"device memory {peak:.2f} GiB; launches {launches[dtype]}")
+            for i, losses in enumerate(run["losses"]):
+                log("train", f"{dtype} step {i}: " + ", ".join(
+                    f"{k} {v:.5g}" for k, v in losses.items()))
+            if len(steps) != 2 * N_IMAGES // BATCH:
+                raise AssertionError(f"{dtype}: {len(steps)} steps, expected "
+                                     f"{2 * N_IMAGES // BATCH}")
+            bad = [k for losses in run["losses"] for k, v in losses.items()
+                   if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{dtype}: non-finite losses {bad}")
+            model = run["model"]
+            if model.step != len(steps):
+                raise AssertionError(f"{dtype}: {model.step} steps applied of "
+                                     f"{len(steps)} (skip gate)")
+            now = dict(model.g.state_dict())
+            now.update({f"D.{k}": v for k, v in model.d.state_dict().items()})
+            moved = {net: np.mean([not torch.equal(now[k], start[k])
+                                   for k in start if k.startswith(net)
+                                   and not k.endswith("initialized")])
+                     for net in ("D.", "")}
+            log("train", f"{dtype}: share of tensors moved: G and D "
+                f"{moved['']:.3f}, D {moved['D.']:.3f}")
+            if moved["D."] < 0.99 or moved[""] < 0.99:
+                raise AssertionError(f"{dtype}: parameters did not move: {moved}")
+            missing = [k for k, v in launches[dtype].items() if not v]
+            if missing:
+                raise AssertionError(f"{dtype}: never launched or recomputed "
+                                     f"on the training path: {missing}")
+            files = [f"{e}_net_{n}.pth" for e in ("1", "2", "latest")
+                     for n in ("G", "D_A", "D_R", "D_S")]
+            files += [f"{e}_train_state.pt" for e in ("1", "2", "latest")]
+            absent = [f for f in files if not os.path.exists(
+                os.path.join(ckpt, "train", f))]
+            if absent:
+                raise AssertionError(f"{dtype}: checkpoints missing: {absent}")
+            del run, model, now
+            torch.cuda.empty_cache()
+
+            results = os.path.join(tmp, f"results_{dtype}")
+            stats = test_cli.main(argv[:4] + [
+                "--checkpoints_dir", ckpt, "--results_dir", results] + argv[6:]
+                + ["--out_all", "--which_epoch", "2"])
+            pngs = sorted(glob.glob(os.path.join(results, "train", "test_2",
+                                                 "images", "*_fake_A.png")))
+            imgs = [read_png(p) for p in pngs]
+            if len(imgs) != N_IMAGES or any(
+                    im.shape != (SIDE, SIDE, 3) or im.min() == im.max()
+                    for im in imgs):
+                raise AssertionError(f"{dtype}: the trained generator gave "
+                                     f"{len(imgs)} fake_A PNGs, expected "
+                                     f"{N_IMAGES} non-constant")
+            log("train", f"{dtype}: test CLI read 2_net_G.pth, wrote "
+                f"{len(imgs)} fake_A PNGs ({stats['images']} images)")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -318,19 +690,26 @@ def main() -> int:
     set_precision("highest")   # float32 plain versions without TF32
     phase_env(torch)
     phase_build()
-    results = phase_kernels(torch, spec)
-    launches = phase_e2e(torch, spec)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    results = {}
+    phase_kernels(torch, spec, results)
+    phase_mrf_kernels(torch, results)
+    phase_autograd(torch, spec)
+    infer_launches = phase_e2e(torch, spec)
+    train_launches = phase_train(torch, spec)
+    ported = [m for m in sys.modules
+              if m == "jax" or m.startswith("jax.") or m == "cfen_vit_tpu"
+              or m.startswith("cfen_vit_tpu.")]
+    if ported:
+        raise AssertionError(f"the port imported {sorted(ported)[:5]}")
 
     entries = []
     for (kernel, dtype), r in results.items():
         source, replaces = KERNELS[kernel]
         entries.append({"name": f"{kernel} {dtype}", "route": "cuda",
                         "source": source, "replaces": replaces,
-                        "launches": launches[dtype][kernel],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "launches": train_launches[dtype][kernel],
+                        "launches_inference": infer_launches[dtype].get(kernel, 0),
+                        **r})
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

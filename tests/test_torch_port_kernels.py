@@ -206,6 +206,56 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         cuda_attn.block_attention(q.half(), q.half(), q.half(), 2)
     w = torch.randn(3, 12, 7, 7, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        cuda_tail.tail_epilogue(torch.randn(1, 12, 8, 8, device=cuda), w,
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_tail.tail_epilogue(torch.randn(1, 12, 8, 8, device=cuda), w.transpose(2, 3),
                                 torch.randn(3, device=cuda))
+
+
+def _grads_through(fn, args):
+    """Output and the grads of sum(out * cotangent) w.r.t. every float arg."""
+    leaves = [a.detach().clone().requires_grad_() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    out = fn(*leaves)
+    cot = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(9),
+                      device=out.device).to(out.dtype)
+    grads = torch.autograd.grad(out, [a for a in leaves if isinstance(a, torch.Tensor)], cot)
+    return out, grads
+
+
+def _autograd_cases(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(4)
+    rn = lambda *s, std=1.0: (torch.randn(s, generator=g, device=dev) * std).to(dtype)  # noqa: E731
+    return [
+        ("attention", cuda_attn, cuda_attn.block_attention, cuda_attn.attention_core,
+         [rn(8, 256, 96), rn(8, 256, 96), rn(8, 256, 96), 4]),
+        ("tail", cuda_tail, cuda_tail.tail_epilogue, cuda_tail.tail_plain,
+         [rn(2, 12, 40, 36).relu(), rn(3, 12, 7, 7, std=0.06), rn(3, std=0.1)]),
+        ("stem", cuda_stem, cuda_stem.fused_stem, cuda_stem.stem_plain,
+         [rn(2, 3, 45, 64)] + [rn(*s, std=0.15) for s in
+                                ((12, 3, 5, 5), (12,), (12, 12, 3, 3), (12,),
+                                 (12, 12, 3, 3), (12,))]),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_autograd_functions_match_plain_autograd(cuda, dtype):
+    """K1, K3 and K4 under autograd: the kernel forward, and a backward that
+    recomputes through the plain version, against autograd of the plain
+    version.  Both backwards run the same ops on the same inputs; they may
+    differ by cuDNN's atomic weight-gradient sums, so grads are held to
+    rtol 1e-4 (float32) or 1e-2 (bf16) and that share of their largest
+    value."""
+    atol, rtol = _CUDA_TOL[dtype]
+    grad_rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, mod, wrapper, plain, args in _autograd_cases(cuda, dtype):
+        before = (mod.launches, mod.recomputes)
+        out, grads = _grads_through(wrapper, args)
+        ref, ref_grads = _grads_through(plain, args)
+        torch.cuda.synchronize()
+        assert (mod.launches, mod.recomputes) == (before[0] + 1, before[1] + 1), name
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol, msg=name)
+        for a, b in zip(grads, ref_grads):
+            torch.testing.assert_close(a.float(), b.float(), rtol=grad_rtol,
+                                       atol=grad_rtol * b.float().abs().max().item(),
+                                       msg=name)
