@@ -3,12 +3,18 @@ cfen_vit_tpu/models/dehazing_model.py).
 
 Batches arrive as NHWC from the data loader (data/) and travel to
 the device as uint8; the forward normalises with x/127.5 - 1 and returns
-uint8 through the reference's truncating tensor2im.  Visuals are named
-real_B / fake_A / fake_R / fake_S as in the reference.  With --out_all the
-generator runs its d-only path and only fake_A comes back.
+uint8 through the reference's truncating tensor2im (`forward_u8`, which
+the server calls directly).  Visuals are named real_B / fake_A / fake_R /
+fake_S as in the reference.  With --out_all the generator runs its d-only
+path and only fake_A comes back.
 
-Ported: `--model` dec_vit and test with the v3 generator.  --chop and
---self_ensemble (models/inference_utils.py) are ROADMAP Queue A item 6.
+--self_ensemble and --chop (models/inference_utils.py) compose the float
+forward, so under either flag the uint8 wire is off: set_input takes the
+loader's [-1, 1] floats and the visuals come back as float32.  --chop
+tiles at the configured input size with --chop_overlap and passes an
+input of exactly that size through whole.
+
+Ported: `--model` dec_vit and test with the v3 generator.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from .generator import Generator
+from .inference_utils import chop_forward, self_ensemble_x8
 from .registry import generator_spec
 from ..train.checkpoint import latest_epoch, load_net
 
@@ -32,9 +39,6 @@ class DehazingModel:
             raise NotImplementedError(
                 f"--model {cfg.model}: the port runs dec_vit and test "
                 "(ROADMAP Queue A items 6 and 8)")
-        if getattr(cfg, "chop", False) or getattr(cfg, "self_ensemble", False):
-            raise NotImplementedError("--chop and --self_ensemble are not "
-                                      "ported yet (ROADMAP Queue A item 6)")
         self.cfg = cfg
         self.device = device
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -44,6 +48,8 @@ class DehazingModel:
         # --out_all keeps only fake_A (ref test.py:47-55); the generator
         # then skips the work only R and S outputs need
         self.branches = "d" if cfg.out_all else "rsd"
+        self._u8_io = not (getattr(cfg, "chop", False)
+                           or getattr(cfg, "self_ensemble", False))
         self.real_B = None
         self.image_paths = []
 
@@ -58,21 +64,53 @@ class DehazingModel:
 
     def set_input(self, batch: Dict) -> None:
         b = batch["B"]
-        # rint recovers the pixels exactly from the loader's v/255*2-1
-        u8 = b if b.dtype == np.uint8 else np.rint((b + 1.0) * 127.5).astype(
-            np.uint8)
-        self.real_B = torch.from_numpy(u8).to(self.device)
+        if self._u8_io:
+            # rint recovers the pixels exactly from the loader's v/255*2-1
+            u8 = b if b.dtype == np.uint8 else np.rint(
+                (b + 1.0) * 127.5).astype(np.uint8)
+            self.real_B = torch.from_numpy(u8).to(self.device)
+        else:
+            self.real_B = torch.from_numpy(np.ascontiguousarray(b)).to(
+                self.device, self.dtype)
         self.image_paths = batch["B_paths"]
 
-    @torch.inference_mode()
-    def test(self) -> Dict[str, np.ndarray]:
-        x = self.real_B.permute(0, 3, 1, 2).contiguous().to(self.dtype)
+    def forward_u8(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """uint8 NHWC on the device -> {branch: uint8 NHWC on the device}."""
+        x = x.permute(0, 3, 1, 2).contiguous().to(self.dtype)
         out = self.net(x / 127.5 - 1.0, branches=self.branches)
-        visuals = {} if self.branches == "d" else {
-            "real_B": self.real_B.cpu().numpy()}
+        return {b: ((v.float() + 1.0) * 127.5).to(torch.uint8).permute(0, 2, 3, 1)
+                for b, v in out.items()}
+
+    def _forward_float(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = self.net(x.permute(0, 3, 1, 2).contiguous(), branches=self.branches)
+        return {b: v.permute(0, 2, 3, 1) for b, v in out.items()}
+
+    @torch.inference_mode()
+    def test(self, cfg=None) -> Dict[str, np.ndarray]:
+        cfg = cfg or self.cfg
+        if self._u8_io:
+            out = self.forward_u8(self.real_B)
+        else:
+            fwd = self._forward_float
+            if getattr(cfg, "self_ensemble", False):
+                base = fwd
+
+                def fwd(x, _base=base):
+                    return {b: self_ensemble_x8(lambda v, _b=b: _base(v)[_b], x)
+                            for b in self.branches}
+            if getattr(cfg, "chop", False):
+                tile, base = cfg.input_size(), fwd
+
+                def fwd(x, _base=base):
+                    if x.shape[1] == tile and x.shape[2] == tile:
+                        return _base(x)
+                    return {b: chop_forward(lambda v, _b=b: _base(v)[_b], x,
+                                            tile, cfg.chop_overlap)
+                            for b in self.branches}
+            out = fwd(self.real_B)
+        visuals = {} if self.branches == "d" else {"real_B": _host(self.real_B)}
         for b, v in out.items():
-            u8 = ((v.float() + 1.0) * 127.5).to(torch.uint8)
-            visuals[_VISUAL[b]] = u8.permute(0, 2, 3, 1).cpu().numpy()
+            visuals[_VISUAL[b]] = _host(v)
         return visuals
 
     def get_image_paths(self):
@@ -88,6 +126,11 @@ def create_model(cfg, device: Optional[torch.device] = None):
         from ..train.trainer import GanTrainer
         return GanTrainer(cfg, device)
     return DehazingModel(cfg, device)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """uint8 stays uint8; the float path comes back as float32."""
+    return (t if t.dtype == torch.uint8 else t.float()).cpu().numpy()
 
 
 def _exists(cfg, epoch) -> bool:

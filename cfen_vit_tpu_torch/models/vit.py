@@ -10,7 +10,9 @@ built (interop/torch_import.py drops their tensors).
 
 The attention core goes through ops/cuda_attn.py (K1); the projections,
 the MLPs and the norms stay F.linear / nn.LayerNorm, as the JAX package
-leaves them to XLA.
+leaves them to XLA.  With CFEN_PALLAS_VIT=1 a block that
+ops/cuda_vit.py `supported` admits runs its whole token pipeline through
+K2 instead (JAX vit_tokens_apply's dispatch).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import cuda_attn
+from ..ops import cuda_attn, cuda_vit
 from ..ops.patch import fold_tokens, unfold_tokens
 from ..ops.resize import avg_pool2, upsample_bilinear2
 
@@ -127,8 +129,23 @@ class ViT(nn.Module):
             self.position_encoding = LearnedPositionalEncoding(
                 spec.seq_length, e)
 
+    def fused_weights(self) -> tuple:
+        """The block's parameters in cuda_vit.FUSED_WEIGHTS order."""
+        layer = self.encoder.layers[0]
+        attn = layer.self_attn
+        return (self.linear_encoding.weight, self.linear_encoding.bias,
+                self.position_encoding.pe.weight, layer.norm1.weight,
+                layer.norm1.bias, attn.in_proj_weight, attn.out_proj.weight,
+                layer.norm2.weight, layer.norm2.bias, layer.linear1.weight,
+                layer.linear1.bias, layer.linear2.weight, layer.linear2.bias,
+                self.mlp_head[0].weight, self.mlp_head[0].bias,
+                self.mlp_head[3].weight, self.mlp_head[3].bias)
+
     def tokens(self, t: torch.Tensor) -> torch.Tensor:
         spec = self.spec
+        if cuda_vit.use_fused_vit() and cuda_vit.supported(spec):
+            return cuda_vit.fused_tokens(t, self.fused_weights(),
+                                         spec.num_heads)
         if not spec.no_mlp:
             t = self.linear_encoding(t) + t
         pos = None if spec.no_pos else self.position_encoding.pe.weight

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "cfen_mrf_bwd_do": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _P],
     "cfen_mrf_bwd_dt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # t, the array of 17 weight pointers, out, scratch
+    "cfen_vit_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

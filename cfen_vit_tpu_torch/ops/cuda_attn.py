@@ -2,8 +2,9 @@
 cfen_vit_tpu/ops/pallas_attn.py).
 
 Replaces the TPU kernel `fused_block_attention` (pallas_attn.py, kernel
-`_attn_kernel`) with csrc/attn.cu: non-causal softmax(Q K^T / sqrt(dh)) V
-for all heads of [N, S, E] batch-first tokens.  On Hopper the kernel is
+`_attn_kernel`) with csrc/attn.cu (the kernel is in csrc/attn.cuh, which
+K2 shares): non-causal softmax(Q K^T / sqrt(dh)) V for all heads of
+[N, S, E] batch-first tokens.  On Hopper the kernel is
 bound by shared-memory reads, not device memory: S <= 256 keeps one head's
 logits in shared memory, so the kernel makes two passes over the keys
 (logits, then P V) with exact row statistics; see the source's header.
@@ -26,7 +27,7 @@ from . import _build
 
 launches = 0          # kernel launches since the last reset
 recomputes = 0        # backward recomputes through attention_core
-HEAD_DIMS = (16, 24, 64, 96)   # the kernel's instantiations (csrc/attn.cu)
+HEAD_DIMS = (16, 24, 64, 96)   # the kernel's instantiations (csrc/attn.cuh)
 MAX_SEQ = 1024        # the [32, S] logits block must fit in shared memory
 
 

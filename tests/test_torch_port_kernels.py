@@ -1,4 +1,4 @@
-"""The port's kernels (cfen_vit_tpu_torch/ops/cuda_{attn,tail,stem}.py).
+"""The port's kernels (cfen_vit_tpu_torch/ops/cuda_{attn,tail,stem,vit}.py).
 
 On the CPU each wrapper runs its plain PyTorch version; those are held
 against the JAX package's Pallas kernels, run in interpret mode as
@@ -7,7 +7,8 @@ functions, to 3e-5 in float32 (summation order only).
 
 The CUDA kernels themselves are checked against the plain versions by the
 tests marked `cuda`, which skip without a card; chip_smoke.py checks them
-at the model's full shapes.
+at the model's full shapes.  K2's plain twin is held against the JAX
+Pallas kernel in tests/test_torch_port_fused_vit.py.
 """
 
 import functools
@@ -24,7 +25,9 @@ from cfen_vit_tpu.models.generator import _stem_plain, _tail_epilogue_plain
 from cfen_vit_tpu.models.vit import attention_core as jax_attention_core
 from cfen_vit_tpu.ops import nn as JN
 from cfen_vit_tpu.ops import pallas_attn, pallas_stem, pallas_tail
-from cfen_vit_tpu_torch.ops import cuda_attn, cuda_stem, cuda_tail
+from cfen_vit_tpu_torch.models import vit as TV
+from cfen_vit_tpu_torch.models.generator import init_weights
+from cfen_vit_tpu_torch.ops import cuda_attn, cuda_stem, cuda_tail, cuda_vit
 
 TOL = 3e-5
 
@@ -259,3 +262,112 @@ def test_cuda_autograd_functions_match_plain_autograd(cuda, dtype):
             torch.testing.assert_close(a.float(), b.float(), rtol=grad_rtol,
                                        atol=grad_rtol * b.float().abs().max().item(),
                                        msg=name)
+
+
+# --------------------------------------------------------------------------
+# K2, the whole ViT token block, on the card
+# --------------------------------------------------------------------------
+
+# (atol as a share of the largest |output|, rtol).  float32: summation
+# order through eight chained linears; bf16: a rounding flip of an
+# intermediate moves an output by about one bf16 ulp of the residual stream.
+_K2_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-2)}
+
+
+def _k2_block(dev, dtype, n, s, e, heads, seed=5):
+    """A ViT block with the generator's init, random biases and LayerNorm
+    affines, on the card in dtype, and seeded tokens."""
+    g = torch.Generator().manual_seed(seed)
+    spec = TV.ViTSpec(img_dim=int(s ** 0.5) * 2, patch_dim=2, num_channels=e // 4,
+                      embedding_dim=e, num_heads=heads, num_layers=1, hidden_dim=4 * e)
+    vit = init_weights(TV.ViT(spec), g)
+    with torch.no_grad():
+        for name, prm in vit.named_parameters():
+            if name.endswith("bias") or "norm" in name:
+                prm.add_(torch.randn(prm.shape, generator=g) * 0.1)
+    t = torch.randn(n, spec.seq_length, e, generator=g)
+    return spec, vit.to(dev, dtype).eval(), t.to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,s,e,heads", [(2, 256, 384, 16), (3, 64, 96, 4),
+                                         (2, 100, 64, 4)])
+def test_cuda_fused_vit_matches_twin(cuda, dtype, n, s, e, heads):
+    spec, vit, t = _k2_block(cuda, dtype, n, s, e, heads)
+    w = vit.fused_weights()
+    before = cuda_vit.launches
+    with torch.inference_mode():
+        got = cuda_vit.fused_tokens(t, w, heads)
+        torch.cuda.synchronize()
+        ref = cuda_vit.fused_tokens_plain(t, w, heads)
+    assert cuda_vit.launches == before + 1
+    frac, rtol = _K2_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=frac * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_vit_grads_match_twin_autograd(cuda, dtype):
+    """The kernel forward and its backward, a recompute through
+    tokens_reference: the grads are that function's own autograd (to 1e-5
+    in relative norm) and, per tensor in relative norm, within 1e-4 of
+    autograd through the twin in float32.  In bf16 the two are different
+    backward pipelines (the twin's passes through float32 matmuls), so a
+    K2 grad must lie within twice the twin's own bf16 error against the
+    float32 grads, plus 1e-3."""
+    spec, vit, t = _k2_block(cuda, dtype, 2, 64, 96, 4)
+    args = [t] + [w.detach() for w in vit.fused_weights()]
+    before = (cuda_vit.launches, cuda_vit.recomputes)
+    out, grads = _grads_through(lambda x, *w: cuda_vit.fused_tokens(x, w, 4), args)
+    _, want = _grads_through(lambda x, *w: cuda_vit.tokens_reference(x, w, 4), args)
+    twin = lambda x, *w: cuda_vit.fused_tokens_plain(x, w, 4)   # noqa: E731
+    ref, ref_grads = _grads_through(twin, args)
+    _, f32_grads = _grads_through(twin, [a.float() for a in args])
+    torch.cuda.synchronize()
+    assert (cuda_vit.launches, cuda_vit.recomputes) == (before[0] + 1, before[1] + 1)
+    frac, rtol = _K2_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=frac * ref.float().abs().max().item())
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+    for name, a, b, c, d in zip(("t",) + cuda_vit.FUSED_WEIGHTS, grads, want,
+                                ref_grads, f32_grads):
+        assert rel(a, b) < 1e-5, name
+        bar = 1e-4 if dtype == torch.float32 else 2 * rel(c, d) + 1e-3
+        assert rel(a, c) < bar, name
+
+
+@pytest.mark.cuda
+def test_cuda_fused_vit_rejects_what_it_does_not_take(cuda, monkeypatch):
+    spec, vit, t = _k2_block(cuda, torch.float32, 1, 64, 96, 4)
+    w = list(vit.fused_weights())
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_vit.fused_tokens(t, w, 8)                       # dh 12
+    with pytest.raises(TypeError):
+        cuda_vit.fused_tokens(t.half(), [x.half() for x in w], 4)
+    with pytest.raises(ValueError, match="pos"):
+        cuda_vit.fused_tokens(t[:, :32].contiguous(), w, 4)   # S 32 against pos [64, E]
+    # a block `supported` admits but the kernel does not take raises on
+    # the switched-on path: E 320 in 32 heads is head dim 10
+    monkeypatch.setenv("CFEN_PALLAS_VIT", "1")
+    spec, vit, t = _k2_block(cuda, torch.float32, 1, 64, 320, 32)
+    assert cuda_vit.supported(spec)
+    with pytest.raises(ValueError, match="head dim"):
+        vit.tokens(t)
+
+
+@pytest.mark.cuda
+def test_cuda_vit_tokens_switch_launches_k2_once(cuda, monkeypatch):
+    spec, vit, t = _k2_block(cuda, torch.float32, 2, 256, 384, 16)
+    before = (cuda_vit.launches, cuda_attn.launches)
+    monkeypatch.setenv("CFEN_PALLAS_VIT", "1")
+    with torch.inference_mode():
+        fused = vit.tokens(t)
+        monkeypatch.setenv("CFEN_PALLAS_VIT", "0")
+        plain = vit.tokens(t)
+    assert (cuda_vit.launches, cuda_attn.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(fused, plain, rtol=1e-4,
+                               atol=1e-5 * plain.abs().max().item())
