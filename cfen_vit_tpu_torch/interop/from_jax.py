@@ -1,6 +1,6 @@
 """Weight bridge: JAX param trees (numpy arrays) -> the port's state_dicts
 (counterpart of cfen_vit_tpu/interop/torch_export.py): the generator, the
-PatchGAN discriminators and the VGG19 tower.
+PatchGAN discriminators, the VGG19 tower and the DCNv2 Pack.
 
 Pure numpy with the exporter's transposes (torch_export.py _conv, _convT,
 _linear, _an), so it never imports the JAX package.  It writes exactly the
@@ -129,6 +129,14 @@ def discriminator_state_dict_from_jax(params, kind: str = "basic") -> dict:
     else:
         for i, conv in enumerate(params["layers"]):
             _put(sd, f"model.{0 if i == 0 else 3 * i - 1}", _conv(conv))
+    return _tensors(sd)
+
+
+def deform_pack_state_dict_from_jax(params) -> dict:
+    """JAX modulated_deform_conv_pack_init tree {w HWIO, b, conv_offset_mask:
+    {w, b}} -> ops/deform_conv.py ModulatedDeformConvPack keys."""
+    sd = _conv(params)
+    _put(sd, "conv_offset_mask", _conv(params["conv_offset_mask"]))
     return _tensors(sd)
 
 

@@ -51,7 +51,18 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      runs --self_ensemble on a batch of 4 and --chop on a 1024x768 image
      (finite, right shape; a 512 input under --chop is the plain
      forward), and `cfen_vit_tpu_torch.eval` on the card must give phase
-     4's mean per-image bf16-vs-float32 PSNR within 0.01 dB.
+     4's mean per-image bf16-vs-float32 PSNR within 0.01 dB;
+  7. the deformable convolution: K6 against deform_plain at the four
+     geometries of `cfen_vit_tpu_torch.bench_deform` (offsets randn*2) and
+     at 2x64x64, 64->64 with offsets of std 12 (a third beyond the TPU
+     kernel's ±12 window), in float32 and bfloat16 (kernel, plain and,
+     where torchvision imports, torchvision.ops.deform_conv2d times; the
+     bound); the five grads of the K6 autograd Function against autograd
+     of deform_plain at 4x256x256, 48->48; then its main path, counted:
+     a ModulatedDeformConvPack forward and backward on the card (one
+     launch, one recompute, output equal to the Pack on deform_plain) and
+     `bench_deform.main(--iters 5)`, whose lines must be finite and whose
+     K6 path must launch.
 
 Phases 1-5 run with K2 off (CFEN_PALLAS_VIT unset), as by default.
 The last two lines are a JSON object of the kernels' results and
@@ -99,6 +110,8 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                    "cfen_vit_tpu/ops/pallas_mrf.py:287"),
     "fused_vit": ("cfen_vit_tpu_torch/csrc/vit.cu",
                   "cfen_vit_tpu/ops/pallas_vit.py:143"),
+    "deform": ("cfen_vit_tpu_torch/csrc/deform.cu",
+               "cfen_vit_tpu/ops/pallas_deform.py:200"),
 }
 # K2 against its twin: (atol as a share of the largest |output|, rtol).
 # float32: summation order through eight chained linears of depth up to
@@ -1065,6 +1078,163 @@ def _infer_utils(torch, argv, dtype, hazy):
         del model
 
 
+def _deform_inputs(torch, n, h, w, cin, cout, k, dtype, off_std=2.0, seed=SEED):
+    """x, offset (std off_std), mask, w (std 0.05), b on the card, NCHW."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+    mask = torch.rand((n, k * k, h, w), generator=g, device="cuda").to(dtype)
+    return [rn(n, cin, h, w), rn(n, 2 * k * k, h, w, std=off_std), mask,
+            rn(cout, cin, k, k, std=0.05), rn(cout, std=0.1)]
+
+
+def _torchvision_deform():
+    """torchvision.ops.deform_conv2d where torchvision imports (timed only,
+    as the library yardstick; the port never calls it), else None."""
+    try:
+        from torchvision.ops import deform_conv2d
+    except ImportError:
+        return None
+    return deform_conv2d
+
+
+def phase_deform(torch, results):
+    """K6 against deform_plain, the K6 autograd Function's grads, then its
+    main path (the Pack and the bench entry point) with the counts reset;
+    returns the launch counts of that run per dtype."""
+    from cfen_vit_tpu_torch import bench_deform
+    from cfen_vit_tpu_torch.ops import cuda_deform
+    from cfen_vit_tpu_torch.ops import deform_conv as D
+    library = _torchvision_deform()
+    log("deform", "torchvision " + ("imports: deform_conv2d is the library time"
+                                    if library else "does not import: library none"))
+    cases = [(g, 2.0) for g in bench_deform.GEOMETRIES] + [((2, 64, 64, 64, 64, 3), 12.0)]
+    failures = []
+    with torch.inference_mode():
+        for (n, h, w, cin, cout, k), off_std in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[-1]
+                args = _deform_inputs(torch, n, h, w, cin, cout, k, dtype, off_std)
+                geo = (1, k // 2, 1)
+                got = D.modulated_deform_conv(*args, *geo)
+                torch.cuda.synchronize()
+                ref = D.deform_plain(*args, *geo)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                atol, rtol = TOL[dn]
+                ok = bool(torch.allclose(got.float(), ref.float(), atol=atol,
+                                         rtol=rtol))
+                label = f"{n}x{h}x{w}x{cin}->{cout} k{k}"
+                if off_std > 2.0:
+                    beyond = (args[1].float().abs() > 12).float().mean().item()
+                    log("deform", f"K6 {label} {dn}, offsets std {off_std} "
+                        f"({100 * beyond:.1f}% beyond ±12): max_abs_err "
+                        f"{err:.3g} (atol {atol}, rtol {rtol}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok or beyond < 0.2:
+                        failures.append(f"K6 {label} {dn} offsets beyond 12")
+                    continue
+                ms = time_ms(torch, lambda: D.modulated_deform_conv(*args, *geo))
+                plain_ms = time_ms(torch, lambda: D.deform_plain(*args, *geo), 5, 1)
+                lib_ms, lib = None, ""
+                if library is not None:
+                    x, off, mask, wt, b = args
+                    try:
+                        lib_ms = time_ms(torch, lambda: library(
+                            x, off, wt, b, padding=k // 2, mask=mask))
+                        lib = f", library {lib_ms:.4f} ms"
+                    except RuntimeError as e:   # e.g. a dtype it does not take
+                        lib = f", library refused {dn}: {str(e)[:80]}"
+                flops = 2.0 * n * h * w * k * k * cin * cout
+                elems = sum(t.numel() for t in args) + ref.numel()
+                bound = bound_ms(flops, elems * args[0].element_size(), dn)
+                log("deform", f"K6 {label} {dn}: max_abs_err {err:.3g} (atol "
+                    f"{atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}; kernel "
+                    f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+                    f"{plain_ms:.4f} ms{lib}, bound {bound[0]:.4f} ms ({bound[1]})")
+                _record(results, "deform", dn, err, ms, plain_ms, bound, lib_ms)
+                if not ok:
+                    failures.append(f"K6 {label} {dn}")
+                del args, got, ref
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        args = _deform_inputs(torch, 4, 256, 256, 48, 48, 3, dtype, seed=SEED + 3)
+        before = (cuda_deform.launches, cuda_deform.recomputes)
+        out, grads = _grads(torch, lambda *a: D.modulated_deform_conv(*a, 1, 1, 1), args)
+        ref, ref_grads = _grads(torch, lambda *a: D.deform_plain(*a, 1, 1, 1), args)
+        torch.cuda.synchronize()
+        counts = (cuda_deform.launches - before[0], cuda_deform.recomputes - before[1])
+        rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip(grads, ref_grads)]
+        bar = 1e-4 if dtype == torch.float32 else 1e-2
+        ok = (counts == (1, 1) and max(rel) < bar and bool(torch.allclose(
+            out.float(), ref.float(), atol=TOL[dn][0], rtol=TOL[dn][1])))
+        log("deform", f"K6 autograd 4x256x256x48->48 {dn}: grads of x, offset, "
+            f"mask, w, b against autograd of deform_plain, relative norm "
+            f"{', '.join(f'{e:.3g}' for e in rel)} (bar {bar}); launches, "
+            f"recomputes {counts} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"K6 autograd {dn}")
+        del args, out, grads, ref, ref_grads
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"K6 disagrees with deform_plain: {failures}")
+
+    # the main path, counted: the Pack forward and backward, then the bench
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        pack = D.ModulatedDeformConvPack(48, 48).cuda().to(dtype)
+        with torch.no_grad():   # a non-zero offset conv, so offsets vary
+            pack.conv_offset_mask.weight.normal_(0.0, 0.05)
+            pack.conv_offset_mask.bias.normal_(0.0, 0.5)
+        x = _deform_inputs(torch, 2, 96, 96, 48, 48, 3, dtype)[0].requires_grad_()
+        cuda_deform.launches = cuda_deform.recomputes = 0
+        out = pack(x)
+        (out.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        pack_counts = (cuda_deform.launches, cuda_deform.recomputes)
+        with torch.no_grad(), mock.patch.object(D, "modulated_deform_conv",
+                                                D.deform_plain):
+            plain = pack(x)
+        grads_ok = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                       for p in [x, *pack.parameters()])
+        ok = (pack_counts == (1, 1) and grads_ok and bool(torch.allclose(
+            out.float(), plain.float(), atol=TOL[dn][0], rtol=TOL[dn][1])))
+        log("deform", f"ModulatedDeformConvPack(48, 48) on [2,48,96,96] {dn}: "
+            f"launches, recomputes per forward and backward {pack_counts}; "
+            f"output against the Pack on deform_plain max "
+            f"{(out.float() - plain.float()).abs().max().item():.3g}; grads "
+            f"finite {grads_ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{dn}: the Pack on the card failed")
+        del pack, x, out, plain
+
+        out_buf = io.StringIO()
+        with redirect_stdout(out_buf):
+            rows = bench_deform.main(["--iters", "5", "--dtype", dn,
+                                      "--gpu_ids", "0"])
+        torch.cuda.synchronize()
+        launches[dn] = {"deform": cuda_deform.launches,
+                        "deform recomputes": cuda_deform.recomputes}
+        for line in out_buf.getvalue().strip().splitlines():
+            log("deform", f"bench_deform {line}")
+        numbers = [v for r in rows for v in r.values()
+                   if isinstance(v, float)]
+        cuda_rows = [r for r in rows if r["path"] == "cuda"]
+        if (len(rows) != 2 * len(bench_deform.GEOMETRIES)
+                or not all(np.isfinite(v) for v in numbers)
+                or not all(r["k6_launches"] > 0 for r in cuda_rows)):
+            raise AssertionError(f"{dn}: bench_deform lines not finite or K6 "
+                                 f"did not launch: {rows}")
+        log("deform", f"{dn} main path (Pack, bench_deform): launches "
+            f"{launches[dn]}")
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1093,6 +1263,7 @@ def main() -> int:
         serve_launches = phase_serve(torch, spec, work, e2e_psnr)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    deform_launches = phase_deform(torch, results)
     ported = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "cfen_vit_tpu"
               or m.startswith("cfen_vit_tpu.")]
@@ -1102,8 +1273,10 @@ def main() -> int:
     entries = []
     for (kernel, dtype), r in results.items():
         source, replaces = KERNELS[kernel]
-        # K2's main path is serving; every other kernel's is training
-        main_path = serve_launches if kernel == "fused_vit" else train_launches
+        # K2's main path is serving, K6's the Pack and bench_deform; every
+        # other kernel's is training
+        main_path = {"fused_vit": serve_launches,
+                     "deform": deform_launches}.get(kernel, train_launches)
         entries.append({"name": f"{kernel} {dtype}", "route": "cuda",
                         "source": source, "replaces": replaces,
                         "launches": main_path[dtype][kernel],

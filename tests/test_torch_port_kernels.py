@@ -1,4 +1,4 @@
-"""The port's kernels (cfen_vit_tpu_torch/ops/cuda_{attn,tail,stem,vit}.py).
+"""The port's kernels (cfen_vit_tpu_torch/ops/cuda_{attn,tail,stem,vit,deform}.py).
 
 On the CPU each wrapper runs its plain PyTorch version; those are held
 against the JAX package's Pallas kernels, run in interpret mode as
@@ -8,7 +8,8 @@ functions, to 3e-5 in float32 (summation order only).
 The CUDA kernels themselves are checked against the plain versions by the
 tests marked `cuda`, which skip without a card; chip_smoke.py checks them
 at the model's full shapes.  K2's plain twin is held against the JAX
-Pallas kernel in tests/test_torch_port_fused_vit.py.
+Pallas kernel in tests/test_torch_port_fused_vit.py, K6's plain version
+against the JAX package in tests/test_torch_port_deform.py.
 """
 
 import functools
@@ -27,7 +28,8 @@ from cfen_vit_tpu.ops import nn as JN
 from cfen_vit_tpu.ops import pallas_attn, pallas_stem, pallas_tail
 from cfen_vit_tpu_torch.models import vit as TV
 from cfen_vit_tpu_torch.models.generator import init_weights
-from cfen_vit_tpu_torch.ops import cuda_attn, cuda_stem, cuda_tail, cuda_vit
+from cfen_vit_tpu_torch.ops import cuda_attn, cuda_deform, cuda_stem, cuda_tail, cuda_vit
+from cfen_vit_tpu_torch.ops import deform_conv
 
 TOL = 3e-5
 
@@ -371,3 +373,83 @@ def test_cuda_vit_tokens_switch_launches_k2_once(cuda, monkeypatch):
     assert (cuda_vit.launches, cuda_attn.launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(fused, plain, rtol=1e-4,
                                atol=1e-5 * plain.abs().max().item())
+
+
+# --------------------------------------------------------------------------
+# K6, the deformable convolution, on the card
+# --------------------------------------------------------------------------
+
+def _deform_args(dev, dtype, n, h, w, c, o, k, stride, pad, dil, off_scale, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    oh, ow = (deform_conv.out_size(s, k, stride, pad, dil) for s in (h, w))
+    rn = lambda *s, std=1.0: (torch.randn(s, generator=g, device=dev) * std).to(dtype)  # noqa: E731
+    mask = torch.rand((n, k * k, oh, ow), generator=g, device=dev).to(dtype)
+    return [rn(n, c, h, w), rn(n, 2 * k * k, oh, ow, std=off_scale), mask,
+            rn(o, c, k, k, std=0.05), rn(o, std=0.1)]
+
+
+# (n, h, w, c, o, k, stride, pad, dilation, offset std); the last case puts
+# about a third of the offsets beyond the TPU kernel's ±12 window
+_DEFORM_CASES = [(2, 16, 20, 24, 40, 3, 1, 1, 1, 2.0),
+                 (1, 33, 30, 20, 70, 5, 1, 2, 1, 2.0),
+                 (2, 17, 19, 8, 16, 3, 2, 1, 2, 12.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _DEFORM_CASES)
+def test_cuda_deform_matches_plain(cuda, dtype, case):
+    n, h, w, c, o, k, stride, pad, dil, scale = case
+    args = _deform_args(cuda, dtype, *case)
+    before = cuda_deform.launches
+    with torch.inference_mode():
+        got = deform_conv.modulated_deform_conv(*args, stride, pad, dil)
+        torch.cuda.synchronize()
+        ref = deform_conv.deform_plain(*args, stride, pad, dil)
+    assert cuda_deform.launches == before + 1
+    atol, rtol = _CUDA_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_deform_grads_match_plain_autograd(cuda, dtype):
+    """The kernel forward and its backward, a recompute through deform_plain:
+    all five grads (four without a bias) against autograd of deform_plain.
+    Both backwards run the same operations; the scatter of the x grad adds
+    with atomics, so grads are held to rtol 1e-4 (float32) or 1e-2 (bf16)
+    and that share of their largest value."""
+    atol, rtol = _CUDA_TOL[dtype]
+    grad_rtol = 1e-4 if dtype == torch.float32 else 1e-2
+    case = (2, 17, 19, 8, 16, 3, 2, 1, 2, 2.0)
+    args = _deform_args(cuda, dtype, *case)
+    for inputs in (args, args[:4] + [None]):
+        before = (cuda_deform.launches, cuda_deform.recomputes)
+        out, grads = _grads_through(
+            lambda *a: deform_conv.modulated_deform_conv(*a, 2, 1, 2), inputs)
+        ref, ref_grads = _grads_through(
+            lambda *a: deform_conv.deform_plain(*a, 2, 1, 2), inputs)
+        torch.cuda.synchronize()
+        assert (cuda_deform.launches, cuda_deform.recomputes) == (before[0] + 1,
+                                                                  before[1] + 1)
+        assert len(grads) == sum(t is not None for t in inputs)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+        for a, b in zip(grads, ref_grads):
+            torch.testing.assert_close(a.float(), b.float(), rtol=grad_rtol,
+                                       atol=grad_rtol * b.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_deform_rejects_what_the_kernel_does_not_take(cuda):
+    args = _deform_args(cuda, torch.float32, 1, 8, 8, 4, 4, 3, 1, 1, 1, 1.0)
+    x, off, mask, w, b = args
+    with pytest.raises(TypeError):                          # mixed dtypes
+        deform_conv.modulated_deform_conv(x, off, mask, w.bfloat16(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        deform_conv.modulated_deform_conv(x, off.transpose(2, 3), mask, w, b)
+    with pytest.raises(ValueError, match="must be on"):     # weights on the CPU
+        deform_conv.modulated_deform_conv(x, off, mask, w.cpu(), b)
+    with pytest.raises(ValueError, match="K 3 or 5"):
+        deform_conv.modulated_deform_conv(x, off, mask, w[:, :, :2, :2].contiguous(), b)
+    with pytest.raises(ValueError, match="offset"):
+        deform_conv.modulated_deform_conv(x, off[:, :9].contiguous(), mask, w, b)
