@@ -3,8 +3,9 @@
 // Replaces cfen_vit_tpu/ops/pallas_attn.py fused_block_attention (kernel
 // _attn_kernel); computes what models/vit.py attention_core computes,
 // including its bf16 rounding: exp values stored in bf16 and divided by the
-// bf16 denominator, the quotient rounded to bf16 before P V.  The kernel,
-// its bound and its design are in attn.cuh, which K2 (vit.cu) shares.
+// bf16 denominator, the quotient rounded to bf16 before P V.  The kernel
+// (a tensor-core redesign of the port's first, scalar K1), its bound and its design are in
+// attn.cuh, which K2 (vit.cu) shares.
 #include "attn.cuh"
 
 // q, k, v, o: contiguous [n, s, e]; heads divides e; dtype per cfen::DType.

@@ -1,163 +1,422 @@
 // Block attention core shared by K1 (csrc/attn.cu) and K2 (csrc/vit.cu):
 // non-causal softmax(Q K^T / sqrt(dh)) V for all heads of [N,S,E] tokens.
+// A redesign of the port's first K1 kernel (scalar float32 FMA from shared
+// memory, two shared reads per FMA) that puts both products on the tensor
+// cores.
 //
 // The two callers round at different places, and the kernel follows each:
-//   K1 (kFused false) as models/vit.py attention_core: q scaled in T, the
-//      exp values and their sum rounded to T, their quotient rounded again;
+//   K1 (kFused false) as models/vit.py attention_core: q scaled and
+//      rounded to T before the product; logits, max, exp and sum float32;
+//      under bf16 the exp values and their sum rounded to bf16 and their
+//      quotient rounded again;
 //   K2 (kFused true) as pallas_vit.py _kernel (:86-93): q cast to float32
 //      before the scale, the softmax divided in float32 and rounded once.
+//      A bf16 product cannot take the unrounded float32 q * scale, so
+//      under bf16 K2 multiplies raw q by k and scales the float32 logits
+//      (the same value up to one float32 rounding); in float32 it scales q
+//      first, as the TPU kernel does.
 // q, k and v are read with the row stride ld_in (K2 reads them out of one
 // packed [rows, 3E] projection), the output written with ld_out.
 //
-// Bound on Hopper: shared-memory traffic.  S <= 256 and dh is 24 or 96, so
-// the S x S logits of one head are small, but every logit and every P V
-// term reads two shared-memory floats for one FMA.  Design: one block per
-// (row n, head, 32-query chunk), 128 threads; the chunks of one (row,
-// head) run as separate blocks so that the GViT blocks (4 rows x 4 heads
-// at batch 4) still give the 132 SMs work.  Pass 1 streams K through
-// shared memory in 64-key tiles and writes the chunk's logits into shared
-// memory ([32, S] floats, 32 KB at S = 256; with the tiles that exceeds
-// the default 48 KB, so the launch raises the kernel's dynamic shared
-// memory limit); a warp per row then takes the exact row max, the exp
-// values and their sum, and the probabilities.
-// Pass 2 streams V the same way and accumulates P V in registers (dh/4 per
-// thread).  Two passes over the keys, no online rescaling, so bf16 rounds
-// where the plain versions round.  Tiles are padded to dh+1 floats (odd)
-// so the lanes of a warp hit distinct banks.  Nothing uses the tensor
-// cores yet: dh = 24 is not a multiple of wgmma's 16-wide k step, which a
-// later wgmma version has to pad.
+// Bound on Hopper: QK^T and PV are 4 N S^2 E operations against 4 N S E
+// elements of traffic, so at the model's shapes (S <= 256) the tensor
+// cores' rate and the latency of one short product per head bound it,
+// not device memory.
+//
+// Design: FlashAttention-2's warp layout on mma.sync.  A block of 4 warps
+// owns 64 query rows of one (row n, head); each warp owns 16 of them.
+// K and V come into shared memory in 64-key tiles with cp.async
+// (zero-filled past S, so the ragged edge adds nothing).  At S <= 256 (the
+// model's shapes) every tile has a slot: the raw queries with all of K,
+// then all of V, are requested at once (each warp scales its queries as it
+// reads their fragments), and the two passes below run without a barrier
+// between tiles.  Longer S streams
+// two slots each of K and V, double-buffered, once per pass.
+// The softmax must see the final row max and sum before any probability
+// is rounded (the bf16 rounding points above), so the output cannot be
+// rescaled online; instead pass 1 runs QK^T over every tile and keeps the
+// row max and an online-rescaled float32 sum (the sum only, which no
+// rounding point sees before it is final), and pass 2 forms the same
+// logits again, rounds the probabilities where the plain version does,
+// and feeds them from the accumulator registers straight into the A
+// fragments of the PV product.  No logit touches shared memory.  The
+// exponentials run in base 2 on the logits times log2(e) (one MUFU ex2
+// each, about 2 ulp), and the quotient is a product with the rounded
+// reciprocal of the sum (within an ulp of the division, before the
+// rounding to T): the per-logit work, not the products, is what the
+// short dh leaves to be bound by.
+//   bf16: m16n8k16 products with float32 accumulation; dh 24 takes one
+//   k16 and one k8 step; V's B fragments come from ldmatrix.trans.
+//   float32: 3xTF32 (x = hi + lo, both TF32; hi*hi + hi*lo + lo*hi on
+//   m16n8k8).  One TF32 pass keeps 11 bits of each operand and misses
+//   K1's float32 tolerance (atol 1e-4, rtol 1e-5; see
+//   tests/test_torch_port_tf32_split.py); the split keeps about 22 bits,
+//   within float32 summation-order noise, at three times the TF32 work,
+//   still under the FFMA cost of the old kernel.  In PV the 8 keys of a
+//   k8 step are taken in the order (0, 2, 4, 6, 1, 3, 5, 7), so that the
+//   accumulator layout of the logits is the A fragment as it stands.
+// wgmma is not used: its 64-row warpgroup tile and 16-deep k step give a
+// k-extent of 24 (LViT) and S <= 256 keys per head little to pipeline,
+// while mma.sync's 16-row tiles fit one warp's share of a head.
+// Shared-memory rows are padded to 4 mod 8 32-bit words, so the fragment
+// loads of a warp (8 rows x 4 words) hit 32 distinct banks.
 #pragma once
 
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace cfen {
 namespace attn {
 
-constexpr int kThreads = 128;
-constexpr int kQB = 32;  // query rows per block
-constexpr int kTK = 64;  // keys per shared-memory tile
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kQB = 16 * kWarps;  // query rows per block
+constexpr int kTK = 64;           // keys per shared-memory tile
+constexpr int kNT = kTK / 8;      // 8-key n-tiles of the logits per tile
+constexpr int kSlots = 4;         // K and V tiles held at once: S <= 256 whole
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
+// across the 4 lanes of a quad (the lanes that share accumulator rows)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <typename T, int DH>
+struct Layout {
+  static constexpr int kWords = DH * static_cast<int>(sizeof(T)) / 4;
+  static constexpr int kLdWords = kWords - kWords % 8 + 4;  // 4 mod 8
+  static constexpr int LD = kLdWords * 4 / static_cast<int>(sizeof(T));
+  static constexpr int kTile = kTK * LD;  // elements of one K or V tile
+  // the queries and `slots` tiles each of K and V
+  static constexpr size_t smem(int slots) {
+    return sizeof(T) * (static_cast<size_t>(kQB) * LD + 2 * static_cast<size_t>(slots) * kTile);
+  }
+};
+
+// Two bf16 queries as the A operand: raw (kScaleQ false) or times the
+// scale and rounded to bf16, as the plain version's q * scale is.
+template <bool kScaleQ>
+__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* p, float scale) {
+  if (!kScaleQ) return mma::lds32(p);
+  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return mma::pack_bf16(x.x * scale, x.y * scale);
+}
+
+// One warp's logits tile: s[j][.] = q rows (row0 + g, + 8) against the 8
+// keys 8j + 2t, 8j + 2t + 1 of the tile kt; the raw queries qs are scaled
+// as they are read when kScaleQ.
+template <typename T, int DH, bool kScaleQ>
+__device__ __forceinline__ void logits_tile(const T* qs, const T* kt, int row0, int g, int t,
+                                            float scale, float s[kNT][4]) {
+  constexpr int LD = Layout<T, DH>::LD;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int kk = 0; kk + 16 <= DH; kk += 16) {
+      const T* qa = qs + (row0 + g) * LD + kk + 2 * t;
+      const uint32_t a[4] = {q_pair<kScaleQ>(qa, scale), q_pair<kScaleQ>(qa + 8 * LD, scale),
+                             q_pair<kScaleQ>(qa + 8, scale),
+                             q_pair<kScaleQ>(qa + 8 * LD + 8, scale)};
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const T* kb = kt + (8 * j + g) * LD + kk + 2 * t;
+        const uint32_t b[2] = {mma::lds32(kb), mma::lds32(kb + 8)};
+        mma::bf16_16816(s[j], a, b);
+      }
+    }
+    if constexpr (DH % 16 == 8) {
+      constexpr int kk = DH - 8;
+      const T* qa = qs + (row0 + g) * LD + kk + 2 * t;
+      const uint32_t a[2] = {q_pair<kScaleQ>(qa, scale), q_pair<kScaleQ>(qa + 8 * LD, scale)};
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+        mma::bf16_1688(s[j], a, mma::lds32(kt + (8 * j + g) * LD + kk + 2 * t));
+    }
+  } else {
+    const float qscale = kScaleQ ? scale : 1.f;
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 8) {
+      const float* qa = qs + (row0 + g) * LD + kk + t;
+      const float a[4] = {qa[0] * qscale, qa[8 * LD] * qscale, qa[4] * qscale,
+                          qa[8 * LD + 4] * qscale};
+      uint32_t ah[4], al[4];
+      mma::split_n<4>(a, ah, al);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float* kb = kt + (8 * j + g) * LD + kk + t;
+        const float b[2] = {kb[0], kb[4]};
+        uint32_t bh[2], bl[2];
+        mma::split_n<2>(b, bh, bl);
+        mma::tf32x3_1688(s[j], ah, al, bh, bl);
+      }
+    }
+  }
+}
+
+// acc[jd] += p (16 x kTK, in the logits' accumulator layout) times the V
+// tile vt (kTK x DH); under bf16 p is rounded to bf16 as it is packed
+template <typename T, int DH>
+__device__ __forceinline__ void pv_tile(const float p[kNT][4], const T* vt, int lane, int g,
+                                        int t, float acc[DH / 8][4]) {
+  constexpr int LD = Layout<T, DH>::LD;
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int kk = 0; kk < kTK / 16; ++kk) {
+      const uint32_t a[4] = {mma::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                             mma::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                             mma::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                             mma::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+      const T* vrow = vt + (16 * kk + (lane & 15)) * LD;
+#pragma unroll
+      for (int jd = 0; jd < DH / 8; ++jd) {
+        uint32_t b[2];
+        mma::ldmatrix_x2_trans(b, vrow + 8 * jd);
+        mma::bf16_16816(acc[jd], a, b);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int jk = 0; jk < kNT; ++jk) {
+      // k slot t is key 2t, slot t + 4 is key 2t + 1 of this 8-key step
+      const float a[4] = {p[jk][0], p[jk][2], p[jk][1], p[jk][3]};
+      uint32_t ah[4], al[4];
+      mma::split_n<4>(a, ah, al);
+      const float* v0 = vt + (8 * jk + 2 * t) * LD + g;
+#pragma unroll
+      for (int jd = 0; jd < DH / 8; ++jd) {
+        const float b[2] = {v0[8 * jd], v0[LD + 8 * jd]};
+        uint32_t bh[2], bl[2];
+        mma::split_n<2>(b, bh, bl);
+        mma::tf32x3_1688(acc[jd], ah, al, bh, bl);
+      }
+    }
+  }
+}
+
+// 2^x, one MUFU instruction (about 2 ulp); -inf gives 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <typename T, int DH, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ o, int s, int ld_in, int ld_out, int heads, float scale) {
-  static_assert(DH % 4 == 0, "kQB * DH must be a multiple of kThreads");
-  constexpr int LD = DH + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;             // [kQB][LD] scaled queries
-  float* kv = qs + kQB * LD;    // [kTK][LD] K tile, then V tile
-  float* ps = kv + kTK * LD;    // [kQB][s]  logits, then probabilities
+            T* __restrict__ o, int s, int ld_in, int ld_out, int heads, float scale,
+            int slots, bool async_ok) {
+  using L = Layout<T, DH>;
+  constexpr int LD = L::LD;
+  constexpr bool kScaleLogits = kFused && sizeof(T) == 2;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kQB][LD] queries
+  T* ks = qs + kQB * LD;                   // [slots][kTK][LD] K tiles
+  T* vs = ks + slots * L::kTile;           // [slots][kTK][LD] V tiles
 
   const int n = blockIdx.x / heads, h = blockIdx.x % heads;
   const int q0 = blockIdx.y * kQB;
-  const int rows = min(kQB, s - q0);
   const size_t in_base = static_cast<size_t>(n) * s * ld_in + static_cast<size_t>(h) * DH;
   const size_t out_base = static_cast<size_t>(n) * s * ld_out + static_cast<size_t>(h) * DH;
-  const int tid = threadIdx.x;
+  const T* kn = k + in_base;
+  const T* vn = v + in_base;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int row0 = 16 * warp;            // the warp's rows within the block
+  const bool active = q0 + row0 < s;     // warp-uniform
+  const int tiles = (s + kTK - 1) / kTK;
+  // every K and V tile has a slot (S <= kSlots * kTK): each is loaded
+  // once, up front; else two slots each, streamed per pass
+  const bool resident = tiles <= slots;
 
-  for (int i = tid; i < kQB * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    float val = 0.f;
-    if (r < rows) val = to_f(q[in_base + static_cast<size_t>(q0 + r) * ld_in + d]);
-    qs[r * LD + d] = kFused ? val * scale : round_to<T>(val * scale);
+  // keys [key0, key0 + kTK) of src into dst; zeros past s
+  auto load = [&](T* dst, const T* src, int key0) {
+    constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
+    constexpr int kPer = DH / kChunk;
+    for (int i = tid; i < kTK * kPer; i += kThreads) {
+      const int r = i / kPer, c = (i % kPer) * kChunk;
+      const bool ok = key0 + r < s;
+      const T* gp = src + static_cast<size_t>(key0 + r) * ld_in + c;
+      T* sp = dst + r * LD + c;
+      if (async_ok) {
+        mma::cp_async16(sp, ok ? gp : src, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e) sp[e] = ok ? gp[e] : from_f<T>(0.f);
+      }
+    }
+  };
+  // the raw queries with the first K group; each warp scales its own as
+  // it reads them
+  load(qs, q + in_base, q0);
+  if (resident) {
+    for (int it = 0; it < tiles; ++it) load(ks + it * L::kTile, kn, it * kTK);
+    mma::cp_async_commit();
+    for (int it = 0; it < tiles; ++it) load(vs + it * L::kTile, vn, it * kTK);
+  } else {
+    load(ks, kn, 0);
+  }
+  mma::cp_async_commit();
+
+  // the warp's logits against tile it in kt, -inf past s; exp(l - m) is
+  // then 2^(l c - m c) with c = log2(e) (K2 under bf16: times the scale),
+  // one FFMA and one ex2
+  const float c = kScaleLogits ? scale * kLog2e : kLog2e;
+  auto logits = [&](int it, const T* kt, float sc[kNT][4]) {
+    logits_tile<T, DH, !kScaleLogits>(qs, kt, row0, g, t, scale, sc);
+    if ((it + 1) * kTK <= s) return;   // no key past s in this tile
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (it * kTK + 8 * j + 2 * t + (e & 1) >= s) sc[j][e] = -INFINITY;
+  };
+
+  // pass 1: row max and online-rescaled sum of exp, rows g and g + 8
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  for (int it = 0; it < tiles; ++it) {
+    if (!resident) {
+      if (it + 1 < tiles) load(ks + ((it + 1) & 1) * L::kTile, kn, (it + 1) * kTK);
+      mma::cp_async_commit();
+    }
+    if (!resident || it == 0) {   // resident: the K group, not V's
+      mma::cp_async_wait<1>();
+      __syncthreads();
+    }
+    if (active) {
+      float sc[kNT][4];
+      logits(it, ks + (resident ? it : it & 1) * L::kTile, sc);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float part[kNT];   // pairwise trees: short dependence chains
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) part[j] = fmaxf(sc[j][2 * hr], sc[j][2 * hr + 1]);
+#pragma unroll
+        for (int w = kNT / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int j = 0; j < w; ++j) part[j] = fmaxf(part[j], part[j + w]);
+        const float mnew = fmaxf(mx[hr], quad_max(part[0]));
+        const float mc = mnew * c;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          part[j] = ex2(fmaf(sc[j][2 * hr], c, -mc)) + ex2(fmaf(sc[j][2 * hr + 1], c, -mc));
+#pragma unroll
+        for (int w = kNT / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int j = 0; j < w; ++j) part[j] += part[j + w];
+        sum[hr] = sum[hr] * ex2((mx[hr] - mnew) * c) + part[0];
+        mx[hr] = mnew;
+      }
+    }
+    if (!resident) __syncthreads();
+  }
+  // the quotient as a product with the rounded reciprocal: within an ulp
+  // of float32 division, before the rounding to T
+  float rden[2], mc[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float total = quad_sum(sum[hr]);
+    rden[hr] = __frcp_rn(kFused ? total : round_to<T>(total));
+    mc[hr] = mx[hr] * c;
   }
 
-  // pass 1: logits of the chunk against every key
-  for (int k0 = 0; k0 < s; k0 += kTK) {
-    const int kn = min(kTK, s - k0);
-    __syncthreads();
-    for (int i = tid; i < kn * DH; i += kThreads) {
-      const int r = i / DH, d = i % DH;
-      kv[r * LD + d] = to_f(k[in_base + static_cast<size_t>(k0 + r) * ld_in + d]);
-    }
-    __syncthreads();
-    for (int i = tid; i < rows * kn; i += kThreads) {
-      const int r = i / kn, c = i % kn;
-      const float* qr = qs + r * LD;
-      const float* kc = kv + c * LD;
-      float acc = 0.f;
+  // pass 2: the same logits, probabilities rounded as the plain version
+  // rounds them, and P V
+  float acc[DH / 8][4];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) acc = fmaf(qr[d], kc[d], acc);
-      ps[r * s + k0 + c] = acc;
-    }
+  for (int jd = 0; jd < DH / 8; ++jd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
+  if (resident) {
+    mma::cp_async_wait<0>();
+    __syncthreads();
+  } else {
+    load(ks, kn, 0);
+    load(vs, vn, 0);
+    mma::cp_async_commit();
   }
-  __syncthreads();
+  for (int it = 0; it < tiles; ++it) {
+    if (!resident) {
+      if (it + 1 < tiles) {
+        load(ks + ((it + 1) & 1) * L::kTile, kn, (it + 1) * kTK);
+        load(vs + ((it + 1) & 1) * L::kTile, vn, (it + 1) * kTK);
+      }
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+      __syncthreads();
+    }
+    const int slot = resident ? it : it & 1;
+    if (active) {
+      float p[kNT][4];
+      logits(it, ks + slot * L::kTile, p);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // the rounding to T is pv_tile's packing (bf16 round to nearest)
+          const int hr = e >> 1;
+          const float ex = ex2(fmaf(p[j][e], c, -mc[hr]));
+          p[j][e] = (kFused ? ex : round_to<T>(ex)) * rden[hr];
+        }
+      pv_tile<T, DH>(p, vs + slot * L::kTile, lane, g, t, acc);
+    }
+    if (!resident) __syncthreads();
+  }
 
-  // softmax, one warp per row: f32 max, exp and sum
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float* row = ps + r * s;
-    float m = -INFINITY;
-    for (int j = lane; j < s; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < s; j += 32) {
-      const float ex = expf(row[j] - m);
-      row[j] = ex;
-      sum += ex;
-    }
-    sum = warp_sum(sum);
-    if (kFused) {
-      for (int j = lane; j < s; j += 32) row[j] = round_to<T>(row[j] / sum);
-    } else {
-      const float den = round_to<T>(sum);
-      for (int j = lane; j < s; j += 32) row[j] = round_to<T>(round_to<T>(row[j]) / den);
-    }
-  }
-
-  // pass 2: P V, each thread owning DH/4 outputs of the chunk
-  constexpr int kAcc = kQB * DH / kThreads;
-  float acc[kAcc];
+  if (!active) return;
 #pragma unroll
-  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-  for (int k0 = 0; k0 < s; k0 += kTK) {
-    const int kn = min(kTK, s - k0);
-    __syncthreads();
-    for (int i = tid; i < kn * DH; i += kThreads) {
-      const int r = i / DH, d = i % DH;
-      kv[r * LD + d] = to_f(v[in_base + static_cast<size_t>(k0 + r) * ld_in + d]);
-    }
-    __syncthreads();
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = q0 + row0 + g + 8 * hr;
+    if (r >= s) continue;
+    T* orow = o + out_base + static_cast<size_t>(r) * ld_out;
 #pragma unroll
-    for (int a = 0; a < kAcc; ++a) {
-      const int i = tid + a * kThreads;
-      const int r = i / DH, d = i % DH;
-      const float* pr = ps + r * s + k0;
-      float sum = acc[a];
-      for (int c = 0; c < kn; ++c) sum = fmaf(pr[c], kv[c * LD + d], sum);
-      acc[a] = sum;
+    for (int jd = 0; jd < DH / 8; ++jd) {
+      orow[8 * jd + 2 * t] = from_f<T>(acc[jd][2 * hr]);
+      orow[8 * jd + 2 * t + 1] = from_f<T>(acc[jd][2 * hr + 1]);
     }
-  }
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) {
-    const int i = tid + a * kThreads;
-    const int r = i / DH, d = i % DH;
-    if (r < rows) o[out_base + static_cast<size_t>(q0 + r) * ld_out + d] = from_f<T>(acc[a]);
   }
 }
 
 template <typename T, int DH, bool kFused>
 cudaError_t launch(const T* q, const T* k, const T* v, T* o, int n, int s, int ld_in,
                    int ld_out, int heads, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((kQB + kTK) * (DH + 1) + static_cast<size_t>(kQB) * s);
-  cudaError_t err = allow_smem(attn_kernel<T, DH, kFused>, smem);
+  const int tiles = (s + kTK - 1) / kTK;
+  const int slots = tiles <= kSlots ? tiles : 2;
+  const size_t smem = Layout<T, DH>::smem(slots);
+  // the shared-memory limit is raised once per device to what any S needs
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= 64 || !allowed[dev]) {
+    err = allow_smem(attn_kernel<T, DH, kFused>, Layout<T, DH>::smem(kSlots));
+    if (err != cudaSuccess) return err;
+    if (dev < 64) allowed[dev] = true;
+  }
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
+  // cp.async moves 16-byte chunks: q, k, v and their row stride must be
+  // aligned
+  const bool async_ok = (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
+                        (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
+                        (reinterpret_cast<uintptr_t>(v) % 16 == 0) &&
+                        (static_cast<size_t>(ld_in) * sizeof(T) % 16 == 0);
   dim3 grid(n * heads, (s + kQB - 1) / kQB);
-  attn_kernel<T, DH, kFused><<<grid, kThreads, smem, stream>>>(q, k, v, o, s, ld_in, ld_out,
-                                                               heads, scale);
+  attn_kernel<T, DH, kFused><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, s, ld_in, ld_out, heads, scale, slots, async_ok);
   return cudaGetLastError();
 }
 

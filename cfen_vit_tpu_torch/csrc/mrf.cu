@@ -18,14 +18,31 @@
 // (550 GFLOP for relu3_1 at batch 4), each backward kernel twice that; the
 // bytes (o, t and O(N P) statistics) are negligible.
 //
-// Design.  A block owns a strip of 32 rows of one operand (o rows for the
-// forward and do, t rows for dt) and walks the other operand in 64-row
-// tiles; both live in shared memory as f32 with an odd row stride (C + 1),
-// so the 16 lanes that read 16 different tile rows hit 16 different banks.
-// Each thread owns a 2 x 4 block of cos, summed over c = 0..C-1 in one
-// sequential fmaf chain: every kernel and every pass forms the same cos
-// bits (fmaf is commutative in its factors, so dt's t.o equals o.t), and
-// the cos < 1 masks and the statistics agree between passes.
+// This is a redesign of the port's first K5 kernels, which formed every
+// cos tile in scalar float32 FMA from shared memory (six shared reads per
+// eight FMAs).  Every cos tile now comes from one routine, `cos_sweep`,
+// on the tensor cores with mma.sync: a block's A rows (o) and B rows (t)
+// stream through a 4-stage cp.async ring in chunks of 64 bytes of C (32
+// bf16 or 16 float32 channels), like a GEMM's k-loop, since a C = 512
+// strip does not fit in shared memory; the ring runs on across tiles, so
+// a tile's epilogue overlaps the next tile's loads.  bf16 inputs take
+// m16n8k16 products with float32 accumulation (the products are exact, as
+// before).  float32 inputs take 3xTF32 (hi*hi + hi*lo + lo*hi of TF32
+// parts, m16n8k8): one TF32 pass keeps 11 bits of each operand, and when
+// o is near t the row min m is small and 1/(m + 1e-5) magnifies cos's
+// error past the statistics' 1e-4 bar; tests/test_torch_port_tf32_split.py
+// shows both.  mma.sync and not wgmma: one routine has to serve the
+// forward's 128-row strips and the backward's 32-row strips, and mma.sync
+// reaches the tensor cores from any warp tile without the warpgroup's
+// shared-memory descriptors; wgmma is the next step for the forward.
+//
+// Every kernel forms the same cos bits.  The backward's masks (cos < 1)
+// and its exp term must agree with the forward's m and z: when m is near
+// 0, a one-ulp disagreement is multiplied by 1/(m + 1e-5).  So every
+// kernel calls cos_sweep in one orientation, A = o rows, B = t rows, with
+// the same chunk order and the same products per element, whatever its
+// tile sizes: dt's strip is t, so it forms the [o tile, t strip] tile and
+// transposes it through shared memory.
 //
 // The exponent divides by the row min, so online (rescaled) sums do not
 // apply: m must be final before any of z is summed, and z before any cs.
@@ -33,35 +50,48 @@
 // Hopper block has 227 KB of shared memory.  The forward therefore
 // RECOMPUTES the cos tiles in three passes over t (min, then sum, then
 // column max) instead of spilling the strip ([N, P, P] f32, 4.3 GB for
-// relu3_1 at batch 4) to a global scratch buffer: it keeps the memory of
-// the loss O(N P), and the recompute is the same code three times.
+// relu3_1 at batch 4) to a global scratch buffer.  A forward block owns
+// 128 o rows (8 warps of 32 x 32 in a 128 x 64 tile), and each pass's
+// epilogue works on the accumulator fragments: the row min with its index
+// and the row sum are taken across the 4 lanes of a quad and the 2 warps
+// that share rows; minima compare (value, index) pairs and keep the
+// smaller index on a tie, since the fragment layout visits columns out of
+// order.
 //
 // Column max across blocks: blocks run in no order, so the TPU's
 // sequential running max over strips does not carry over.  cs >= 0, so
 // its float bits order like unsigned ints, and one 64-bit atomicMax on
 // (bits(cs) << 32) | (0xFFFFFFFF - q) keeps the max and, on ties, the
-// first q.  The wrapper zeroes that buffer and unpacks it.  Rows within a
-// block are reduced in shared memory first, so each block issues 64
-// atomics per tile.
+// first q.  The wrapper zeroes that buffer and unpacks it.  A block first
+// reduces its 128 rows (across the 8 lanes that share a column, then the
+// 4 warps) and issues 64 atomics per tile.
 //
-// The backward kernels keep the [32, 64] dcos tile in shared memory and
-// multiply it into the 64-row tile already resident there, so the second
-// product costs no extra loads; each thread accumulates 4 rows x C/32
-// columns of do (dt) in registers.  do and dt are written in the input
-// dtype; the glue adds the rank-1 argmin terms in f32 (ops/cuda_mrf.py).
-// Nothing uses the tensor cores yet: that is wgmma work for a later change.
+// The backward kernels keep a strip of 32 rows; their cos tile comes from
+// cos_sweep into shared memory, and their dcos product is unchanged: the
+// [32, 64] dcos tile stays in shared memory and multiplies the 64-row tile
+// held there as float32, scalar FMA, each thread accumulating 4 rows x
+// C/32 columns of do (dt) in registers.  do and dt are written in the
+// input dtype; the glue adds the rank-1 argmin terms in f32
+// (ops/cuda_mrf.py).
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kR = 32;       // strip rows per block
-constexpr int kT = 64;       // rows of the other operand per tile
-constexpr int kRM = kR / 16; // strip rows per thread: ty + 16 i
-constexpr int kTN = kT / 16; // tile rows per thread: tx + 16 j
+using cfen::mma::cp_async16;
+using cfen::mma::lds32;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kR = 32;         // backward strip rows per block
+constexpr int kT = 64;         // rows of the other operand per tile
+constexpr int kRM = kR / 16;   // backward strip rows per thread: ty + 16 i
+constexpr int kTN = kT / 16;   // backward tile rows per thread: tx + 16 j
+constexpr int kFwdRows = 128;  // forward strip rows per block
+constexpr int kStages = 4;     // cp.async ring depth
+constexpr int kRowBytes = 80;  // a ring row: 64 bytes of C and 16 of padding
 constexpr float kEps = 1e-5f;
 
 // The three expressions every pass and kernel must evaluate identically.
@@ -70,6 +100,12 @@ __device__ __forceinline__ float cdist(float cos) {
 }
 __device__ __forceinline__ float exp_term(float cd, float m) {
   return expf(fmaf(-2.f, __fdiv_rn(cd, m + kEps), 2.f));
+}
+
+// (value, index) a replaces (v, i): smaller value, or the smaller index on
+// a tie
+__device__ __forceinline__ bool better_min(float a, int ai, float v, int i) {
+  return a < v || (a == v && ai < i);
 }
 
 // rows [row0, row0 + rows) of src [P, C] into dst [rows][C + 1] as f32;
@@ -85,141 +121,293 @@ __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
   }
 }
 
-// acc[i][j] = sum_c a[ty + 16 i][c] * b[tx + 16 j][c], c in order
-template <int C>
-__device__ __forceinline__ void cos_tile(const float* a_s, const float* b_s, int ty, int tx,
-                                         float acc[kRM][kTN]) {
-  constexpr int LD = C + 1;
+__host__ __device__ constexpr size_t ring_bytes(int bm, int bn) {
+  return static_cast<size_t>(kStages) * (bm + bn) * kRowBytes;
+}
+
+// The accumulator element e of fragment (mi, nj) of this thread sits at
+// tile row frag_row and column frag_col; warps tile [BM, BN] as
+// (BM / WM) x (BN / WN), warp-major along the rows.
+template <int BM, int WM>
+__device__ __forceinline__ int frag_row(int mi, int e) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp % (BM / WM)) * WM + 16 * mi + lane / 4 + 8 * (e >> 1);
+}
+template <int BM, int WM, int WN>
+__device__ __forceinline__ int frag_col(int nj, int e) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp / (BM / WM)) * WN + 8 * nj + 2 * (lane % 4) + (e & 1);
+}
+
+// The one routine that forms cos tiles, on the tensor cores.  Tile i is
+// A rows [a_row0 + i a_step, + BM) of a (o, [P, C]) against B rows
+// [b_row0 + i b_step, + BN) of b (t, [P, C]), rows at or past P zero,
+// summed over c = 0..C-1 in chunks of 64 bytes in order; each element's
+// products and their order depend on neither the tile sizes nor its
+// position, so every kernel forms the same bits.  After tile i's product,
+// epi(i, acc) runs with acc[mi][nj][e] at (frag_row, frag_col); all
+// threads call it, so it may synchronise.  The ring runs on across tiles.
+template <typename T, int C, int BM, int BN, int WM, int WN, class Epi>
+__device__ __forceinline__ void cos_sweep(T* ring, const T* __restrict__ a, int a_row0,
+                                          int a_step, const T* __restrict__ b, int b_row0,
+                                          int b_step, int p, int tiles, bool async_ok,
+                                          Epi&& epi) {
+  constexpr int kElt = static_cast<int>(sizeof(T));
+  constexpr int BK = 64 / kElt, LD = kRowBytes / kElt, NK = C / BK;
+  constexpr int MI = WM / 16, NJ = WN / 8;
+  constexpr int kStage = (BM + BN) * LD;
+  static_assert((BM / WM) * (BN / WN) * 32 == kThreads, "one warp tile per warp");
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wm = warp % (BM / WM), wn = warp / (BM / WM);
+  const int total = tiles * NK;
+
+  auto issue = [&](int it) {
+    if (it < total) {
+      const int tile = it / NK, k0 = (it % NK) * BK;
+      T* st = ring + (it % kStages) * kStage;
+      const int ar = a_row0 + tile * a_step, br = b_row0 + tile * b_step;
+      constexpr int kChunk = 16 / kElt;
+      for (int i = tid; i < (BM + BN) * 4; i += kThreads) {
+        const int r = i / 4, c = (i % 4) * kChunk;
+        const bool is_a = r < BM;
+        const int row = is_a ? ar + r : br + r - BM;
+        const T* src = is_a ? a : b;
+        const bool ok = row < p;
+        const T* gp = src + static_cast<size_t>(ok ? row : 0) * C + k0 + c;
+        T* sp = st + r * LD + c;
+        if (async_ok) {
+          cp_async16(sp, gp, ok);
+        } else {
 #pragma unroll
-  for (int i = 0; i < kRM; ++i)
+          for (int e = 0; e < kChunk; ++e) sp[e] = ok ? gp[e] : cfen::from_f<T>(0.f);
+        }
+      }
+    }
+    cfen::mma::cp_async_commit();
+  };
+
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  float acc[MI][NJ][4];
+  for (int it = 0; it < total; ++it) {
+    cfen::mma::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it % NK == 0) {
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < C; ++c) {
-    float a[kRM], b[kTN];
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) a[i] = a_s[(ty + 16 * i) * LD + c];
+        for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) b[j] = b_s[(tx + 16 * j) * LD + c];
+          for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+    }
+    const T* as = ring + (it % kStages) * kStage + wm * WM * LD;
+    const T* bs = ring + (it % kStages) * kStage + (BM + wn * WN) * LD;
+    if constexpr (kElt == 2) {
 #pragma unroll
-    for (int i = 0; i < kRM; ++i)
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t af[MI][4], bf[NJ][2];
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int mi = 0; mi < MI; ++mi) {
+          const T* pa = as + (16 * mi + g) * LD + kk + 2 * t;
+          af[mi][0] = lds32(pa);
+          af[mi][1] = lds32(pa + 8 * LD);
+          af[mi][2] = lds32(pa + 8);
+          af[mi][3] = lds32(pa + 8 * LD + 8);
+        }
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj) {
+          const T* pb = bs + (8 * nj + g) * LD + kk + 2 * t;
+          bf[nj][0] = lds32(pb);
+          bf[nj][1] = lds32(pb + 8);
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < NJ; ++nj) cfen::mma::bf16_16816(acc[mi][nj], af[mi], bf[nj]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 8) {
+        uint32_t ah[MI][4], al[MI][4], bh[NJ][2], bl[NJ][2];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const float* pa = as + (16 * mi + g) * LD + kk + t;
+          const float x[4] = {pa[0], pa[8 * LD], pa[4], pa[8 * LD + 4]};
+          cfen::mma::split_n<4>(x, ah[mi], al[mi]);
+        }
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj) {
+          const float* pb = bs + (8 * nj + g) * LD + kk + t;
+          const float x[2] = {pb[0], pb[4]};
+          cfen::mma::split_n<2>(x, bh[nj], bl[nj]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < NJ; ++nj)
+            cfen::mma::tf32x3_1688(acc[mi][nj], ah[mi], al[mi], bh[nj], bl[nj]);
+      }
+    }
+    issue(it + kStages - 1);   // into the stage every thread finished with
+    if (it % NK == NK - 1) epi(it / NK, acc);
   }
+  cfen::mma::cp_async_wait<0>();
+  __syncthreads();
 }
 
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
 mrf_fwd_kernel(const T* __restrict__ o, const T* __restrict__ t, int p, float* __restrict__ m_out,
                float* __restrict__ z_out, long long* __restrict__ pstar_out,
-               unsigned long long* __restrict__ colmax) {
-  constexpr int LD = C + 1;
-  extern __shared__ float smem[];
-  float* a_s = smem;                      // [kR][LD] o strip
-  float* b_s = a_s + kR * LD;             // [kT][LD] t tile
-  unsigned long long* red =               // [16][kT] packed column maxima
-      reinterpret_cast<unsigned long long*>(b_s + kT * LD);
+               unsigned long long* __restrict__ colmax, bool async_ok) {
+  constexpr int BM = kFwdRows, BN = kT, WM = 32, WN = 32, MI = WM / 16, NJ = WN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* red_v = reinterpret_cast<float*>(smem_raw + ring_bytes(BM, BN));  // [2][BM]
+  int* red_i = reinterpret_cast<int*>(red_v + 2 * BM);                    // [2][BM]
+  float* row_m = reinterpret_cast<float*>(red_i + 2 * BM);                // [BM]
+  float* row_z = row_m + BM;                                              // [BM]
+  unsigned long long* red_k =                                             // [BM / WM][BN]
+      reinterpret_cast<unsigned long long*>(row_z + BM);
 
-  const int n = blockIdx.y, q0 = blockIdx.x * kR;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int n = blockIdx.y, q0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, lane = tid % 32, wn = (tid / 32) / (BM / WM);
+  const int wm = (tid / 32) % (BM / WM);
   const size_t base = static_cast<size_t>(n) * p;
   const T* on = o + base * C;
   const T* tn = t + base * C;
-  load_rows<T, C>(a_s, on, q0, kR, p);
+  const int tiles = (p + BN - 1) / BN;
+  using Acc = float[MI][NJ][4];
 
   // pass 1: row min of cd and its first argmin
-  float mn[kRM];
-  int arg[kRM];
+  float mn[MI][2];
+  int arg[MI][2];
 #pragma unroll
-  for (int i = 0; i < kRM; ++i) { mn[i] = INFINITY; arg[i] = p; }
-  for (int p0 = 0; p0 < p; p0 += kT) {
-    __syncthreads();
-    load_rows<T, C>(b_s, tn, p0, kT, p);
-    __syncthreads();
-    float acc[kRM][kTN];
-    cos_tile<C>(a_s, b_s, ty, tx, acc);
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int col = p0 + tx + 16 * j;   // increasing in j and over tiles
-      if (col >= p) continue;
+    for (int h = 0; h < 2; ++h) { mn[mi][h] = INFINITY; arg[mi][h] = p; }
+  cos_sweep<T, C, BM, BN, WM, WN>(ring, on, q0, 0, tn, 0, BN, p, tiles, async_ok,
+                                  [&](int tile, Acc& acc) {
 #pragma unroll
-      for (int i = 0; i < kRM; ++i) {
-        const float cd = cdist(acc[i][j]);
-        if (cd < mn[i]) { mn[i] = cd; arg[i] = col; }
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = tile * BN + frag_col<BM, WM, WN>(nj, e);
+          const float cd = cdist(acc[mi][nj][e]);
+          if (col < p && better_min(cd, col, mn[mi][e >> 1], arg[mi][e >> 1])) {
+            mn[mi][e >> 1] = cd;
+            arg[mi][e >> 1] = col;
+          }
+        }
+  });
+  // the 4 lanes of a quad share rows, then the BN / WN warps along the row
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      for (int off = 1; off < 4; off <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, mn[mi][h], off);
+        const int oa = __shfl_xor_sync(0xffffffffu, arg[mi][h], off);
+        if (better_min(om, oa, mn[mi][h], arg[mi][h])) { mn[mi][h] = om; arg[mi][h] = oa; }
+      }
+      if (lane % 4 == 0) {
+        const int r = frag_row<BM, WM>(mi, 2 * h);
+        red_v[wn * BM + r] = mn[mi][h];
+        red_i[wn * BM + r] = arg[mi][h];
       }
     }
+  __syncthreads();
+  if (tid < BM) {
+    float v = red_v[tid];
+    int i = red_i[tid];
+    if (better_min(red_v[BM + tid], red_i[BM + tid], v, i)) { v = red_v[BM + tid]; i = red_i[BM + tid]; }
+    row_m[tid] = v;
+    if (q0 + tid < p) pstar_out[base + q0 + tid] = i;
   }
-  // the 16 lanes of a half-warp share ty: combine, smaller index on ties
+  __syncthreads();
+  float mrow[MI][2];
 #pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    for (int off = 8; off > 0; off >>= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, mn[i], off);
-      const int oa = __shfl_xor_sync(0xffffffffu, arg[i], off);
-      if (om < mn[i] || (om == mn[i] && oa < arg[i])) { mn[i] = om; arg[i] = oa; }
-    }
-  }
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) mrow[mi][h] = row_m[frag_row<BM, WM>(mi, 2 * h)];
 
   // pass 2: z = sum_p be
-  float zs[kRM] = {};
-  for (int p0 = 0; p0 < p; p0 += kT) {
-    __syncthreads();
-    load_rows<T, C>(b_s, tn, p0, kT, p);
-    __syncthreads();
-    float acc[kRM][kTN];
-    cos_tile<C>(a_s, b_s, ty, tx, acc);
+  float zs[MI][2] = {};
+  cos_sweep<T, C, BM, BN, WM, WN>(ring, on, q0, 0, tn, 0, BN, p, tiles, async_ok,
+                                  [&](int tile, Acc& acc) {
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      if (p0 + tx + 16 * j >= p) continue;
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int i = 0; i < kRM; ++i) zs[i] += exp_term(cdist(acc[i][j]), mn[i]);
+      for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (tile * BN + frag_col<BM, WM, WN>(nj, e) < p)
+            zs[mi][e >> 1] += exp_term(cdist(acc[mi][nj][e]), mrow[mi][e >> 1]);
+  });
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = zs[mi][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (lane % 4 == 0) red_v[wn * BM + frag_row<BM, WM>(mi, 2 * h)] = v;
+    }
+  __syncthreads();
+  if (tid < BM) {
+    const float z = red_v[tid] + red_v[BM + tid];
+    row_z[tid] = z;
+    if (q0 + tid < p) {
+      m_out[base + q0 + tid] = row_m[tid];
+      z_out[base + q0 + tid] = z;
     }
   }
+  __syncthreads();
+  float zrow[MI][2];
 #pragma unroll
-  for (int i = 0; i < kRM; ++i)
-    for (int off = 8; off > 0; off >>= 1) zs[i] += __shfl_xor_sync(0xffffffffu, zs[i], off);
-  if (tx == 0) {
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int q = q0 + ty + 16 * i;
-      if (q < p) {
-        m_out[base + q] = mn[i];
-        z_out[base + q] = zs[i];
-        pstar_out[base + q] = arg[i];
-      }
-    }
-  }
+    for (int h = 0; h < 2; ++h) zrow[mi][h] = row_z[frag_row<BM, WM>(mi, 2 * h)];
 
   // pass 3: cs = be / z; column max over the strip, first q on ties
-  for (int p0 = 0; p0 < p; p0 += kT) {
-    __syncthreads();
-    load_rows<T, C>(b_s, tn, p0, kT, p);
-    __syncthreads();
-    float acc[kRM][kTN];
-    cos_tile<C>(a_s, b_s, ty, tx, acc);
+  cos_sweep<T, C, BM, BN, WM, WN>(ring, on, q0, 0, tn, 0, BN, p, tiles, async_ok,
+                                  [&](int tile, Acc& acc) {
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      unsigned long long best = 0ull;
+    for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
-      for (int i = 0; i < kRM; ++i) {
-        const unsigned q = static_cast<unsigned>(q0 + ty + 16 * i);
-        if (q >= static_cast<unsigned>(p)) continue;
-        const float cs = __fdiv_rn(exp_term(cdist(acc[i][j]), mn[i]), zs[i]);
-        const unsigned long long key =
-            (static_cast<unsigned long long>(__float_as_uint(cs)) << 32) | (0xFFFFFFFFu - q);
-        best = key > best ? key : best;
+      for (int c = 0; c < 2; ++c) {
+        unsigned long long best = 0ull;
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const unsigned q = static_cast<unsigned>(q0 + frag_row<BM, WM>(mi, 2 * h));
+            if (q >= static_cast<unsigned>(p)) continue;
+            const float cs = __fdiv_rn(exp_term(cdist(acc[mi][nj][2 * h + c]), mrow[mi][h]),
+                                       zrow[mi][h]);
+            const unsigned long long key =
+                (static_cast<unsigned long long>(__float_as_uint(cs)) << 32) | (0xFFFFFFFFu - q);
+            best = key > best ? key : best;
+          }
+        // the 8 lanes that share a column (lane bits 2-4)
+        for (int off = 4; off < 32; off <<= 1) {
+          const unsigned long long v = __shfl_xor_sync(0xffffffffu, best, off);
+          best = v > best ? v : best;
+        }
+        if (lane < 4) red_k[wm * BN + frag_col<BM, WM, WN>(nj, c)] = best;
       }
-      red[ty * kT + tx + 16 * j] = best;
-    }
     __syncthreads();
-    if (tid < kT && p0 + tid < p) {
+    if (tid < BN && tile * BN + tid < p) {
       unsigned long long best = 0ull;
-      for (int r = 0; r < 16; ++r) {
-        const unsigned long long v = red[r * kT + tid];
+#pragma unroll
+      for (int w = 0; w < BM / WM; ++w) {
+        const unsigned long long v = red_k[w * BN + tid];
         best = v > best ? v : best;
       }
-      atomicMax(colmax + base + p0 + tid, best);
+      atomicMax(colmax + base + tile * BN + tid, best);
     }
-  }
+  });
 }
 
 // kRowsQ: the strip is o (rows q), tiles are t (rows p): writes do and dm.
@@ -229,20 +417,27 @@ __global__ void __launch_bounds__(kThreads)
 mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
                const float* __restrict__ m, const float* __restrict__ z,
                const float* __restrict__ dz, const long long* __restrict__ qstar,
-               const float* __restrict__ dk, T* __restrict__ grad, float* __restrict__ dm_out) {
+               const float* __restrict__ dk, T* __restrict__ grad, float* __restrict__ dm_out,
+               bool async_ok) {
   constexpr int LD = C + 1;
   constexpr int LG = kT + 1;
   constexpr int kCols = C / 32;          // grad columns per thread: lane + 32 k
-  extern __shared__ float smem[];
-  float* a_s = smem;                     // [kR][LD] strip
-  float* b_s = a_s + kR * LD;            // [kT][LD] tile
+  // the cos tile, A = o rows, B = t rows: [strip, tile] for do, [tile,
+  // strip] for dt
+  constexpr int BM = kRowsQ ? kR : kT, BN = kRowsQ ? kT : kR, WM = 16, WN = 16;
+  constexpr int MI = WM / 16, NJ = WN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* b_s = reinterpret_cast<float*>(smem_raw + ring_bytes(BM, BN));  // [kT][LD] tile
   float* g_s = b_s + kT * LD;            // [kR][LG] dcos (rows: strip)
+  float* c_s = g_s + kR * LG;            // [kR][LG] cos (rows: strip)
 
   const int n = blockIdx.y, r0 = blockIdx.x * kR;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
   const size_t base = static_cast<size_t>(n) * p;
-  load_rows<T, C>(a_s, strip + base * C, r0, kR, p);
+  const T* sn = strip + base * C;
+  const T* tl = tiles + base * C;
   const float dkn = dk[n];
 
   // statistics of the strip's own rows
@@ -268,7 +463,16 @@ mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
     for (int k = 0; k < kCols; ++k) acc2[r][k] = 0.f;
   float dm_acc[kRM] = {};
 
-  for (int c0 = 0; c0 < p; c0 += kT) {
+  auto epi = [&](int tile, float (&acc)[MI][NJ][4]) {
+    const int c0 = tile * kT;
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = frag_row<BM, WM>(0, e), cc = frag_col<BM, WM, WN>(nj, e);
+        if (kRowsQ) c_s[rr * LG + cc] = acc[0][nj][e];
+        else c_s[cc * LG + rr] = acc[0][nj][e];
+      }
     // statistics of the tile's rows
     float cm[kTN], cz[kTN], cdz[kTN];
     long long cq[kTN];
@@ -285,10 +489,7 @@ mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
       }
     }
     __syncthreads();
-    load_rows<T, C>(b_s, tiles + base * C, c0, kT, p);
-    __syncthreads();
-    float acc[kRM][kTN];
-    cos_tile<C>(a_s, b_s, ty, tx, acc);
+    load_rows<T, C>(b_s, tl, c0, kT, p);
 #pragma unroll
     for (int i = 0; i < kRM; ++i) {
       const int r = r0 + ty + 16 * i;
@@ -301,7 +502,7 @@ mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
           const float zz = kRowsQ ? rz[i] : cz[j];
           const float dzz = kRowsQ ? rdz[i] : cdz[j];
           const bool hit = kRowsQ ? (cq[j] == r) : (rq[i] == c);
-          const float cos = acc[i][j];
+          const float cos = c_s[(ty + 16 * i) * LG + tx + 16 * j];
           const float cd = cdist(cos);
           const float den = mm + kEps;
           const float beb = exp_term(cd, mm) * ((hit ? __fdiv_rn(dkn, zz) : 0.f) + dzz);
@@ -325,7 +526,12 @@ mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
 #pragma unroll
         for (int k = 0; k < kCols; ++k) acc2[r][k] = fmaf(g[r], b[k], acc2[r][k]);
     }
-  }
+  };
+  const int n_tiles = (p + kT - 1) / kT;
+  if (kRowsQ)
+    cos_sweep<T, C, BM, BN, WM, WN>(ring, sn, r0, 0, tl, 0, kT, p, n_tiles, async_ok, epi);
+  else
+    cos_sweep<T, C, BM, BN, WM, WN>(ring, tl, 0, kT, sn, r0, 0, p, n_tiles, async_ok, epi);
 
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -349,25 +555,31 @@ mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
   }
 }
 
-template <int C>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (kR + kT) * (C + 1) + sizeof(unsigned long long) * 16 * kT;
+  return ring_bytes(kFwdRows, kT) + sizeof(float) * 6 * kFwdRows +
+         sizeof(unsigned long long) * (kFwdRows / 32) * kT;
 }
 template <int C>
 constexpr size_t bwd_smem() {
-  return sizeof(float) * ((kR + kT) * (C + 1) + kR * (kT + 1));
+  return ring_bytes(kR, kT) + sizeof(float) * (kT * (C + 1) + 2 * kR * (kT + 1));
+}
+
+// cp.async moves 16-byte chunks: both operands must start on 16 bytes
+// (rows of C >= 128 elements keep every chunk aligned after that)
+inline bool aligned16(const void* a, const void* b) {
+  return reinterpret_cast<uintptr_t>(a) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
 }
 
 template <typename T, int C>
 cudaError_t launch_fwd(const void* o, const void* t, void* m, void* z, void* pstar, void* colmax,
                        int n, int p, cudaStream_t stream) {
-  cudaError_t err = cfen::allow_smem(mrf_fwd_kernel<T, C>, fwd_smem<C>());
+  cudaError_t err = cfen::allow_smem(mrf_fwd_kernel<T, C>, fwd_smem());
   if (err != cudaSuccess) return err;
-  dim3 grid((p + kR - 1) / kR, n);
-  mrf_fwd_kernel<T, C><<<grid, kThreads, fwd_smem<C>(), stream>>>(
+  dim3 grid((p + kFwdRows - 1) / kFwdRows, n);
+  mrf_fwd_kernel<T, C><<<grid, kThreads, fwd_smem(), stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(t), p, static_cast<float*>(m),
       static_cast<float*>(z), static_cast<long long*>(pstar),
-      static_cast<unsigned long long*>(colmax));
+      static_cast<unsigned long long*>(colmax), aligned16(o, t));
   return cudaGetLastError();
 }
 
@@ -382,7 +594,7 @@ cudaError_t launch_bwd(const void* strip, const void* tiles, const void* m, cons
       static_cast<const T*>(strip), static_cast<const T*>(tiles), p,
       static_cast<const float*>(m), static_cast<const float*>(z), static_cast<const float*>(dz),
       static_cast<const long long*>(qstar), static_cast<const float*>(dk), static_cast<T*>(grad),
-      static_cast<float*>(dm));
+      static_cast<float*>(dm), aligned16(strip, tiles));
   return cudaGetLastError();
 }
 

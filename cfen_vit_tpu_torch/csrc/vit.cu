@@ -9,9 +9,9 @@
 // with the TPU kernel's rounding points: every linear accumulates in
 // float32, adds its bias in float32 and rounds to T once; each residual or
 // positional add rounds to T; LayerNorm runs in float32 (biased variance,
-// eps 1e-5) and rounds its output to T; the attention casts q to float32
-// before the 1/sqrt(dh) scale and rounds p only after the float32 divide
-// (attn.cuh, kFused).  ops/cuda_vit.py fused_tokens_plain is the same
+// eps 1e-5) and rounds its output to T; the attention scales q (or,
+// under bf16, the float32 logits) by 1/sqrt(dh) and rounds p only once,
+// after the float32 quotient (attn.cuh, kFused, on the tensor cores).  ops/cuda_vit.py fused_tokens_plain is the same
 // arithmetic in plain PyTorch.
 //
 // Bound on Hopper: operations.  At LViT L3 of the canonical model at batch

@@ -4,10 +4,11 @@ cfen_vit_tpu/ops/pallas_attn.py).
 Replaces the TPU kernel `fused_block_attention` (pallas_attn.py, kernel
 `_attn_kernel`) with csrc/attn.cu (the kernel is in csrc/attn.cuh, which
 K2 shares): non-causal softmax(Q K^T / sqrt(dh)) V for all heads of
-[N, S, E] batch-first tokens.  On Hopper the kernel is
-bound by shared-memory reads, not device memory: S <= 256 keeps one head's
-logits in shared memory, so the kernel makes two passes over the keys
-(logits, then P V) with exact row statistics; see the source's header.
+[N, S, E] batch-first tokens.  Both products run on the tensor cores
+(mma.sync: bf16 directly, float32 through a 3xTF32 split); the kernel
+makes two passes over the keys (the row max and sum, then the same logits
+again, the rounded probabilities and P V), so it rounds where the plain
+version rounds; see the source's header.
 
 `block_attention` runs `attention_core`, the plain version (JAX
 models/vit.py attention_core), for CPU tensors and the kernel for CUDA
@@ -28,7 +29,7 @@ from . import _build
 launches = 0          # kernel launches since the last reset
 recomputes = 0        # backward recomputes through attention_core
 HEAD_DIMS = (16, 24, 64, 96)   # the kernel's instantiations (csrc/attn.cuh)
-MAX_SEQ = 1024        # the [32, S] logits block must fit in shared memory
+MAX_SEQ = 1024        # the longest sequence the tests and chip_smoke.py hold it to
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,7 +60,10 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v: [N, S, E] -> [N, S, E]."""
     if q.device.type == "cpu":
         return attention_core(q, k, v, num_heads)
-    return _Attention.apply(q, k, v, num_heads)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, num_heads)
+    return _launch(q, k, v, num_heads)   # no graph to record
 
 
 class _Attention(torch.autograd.Function):

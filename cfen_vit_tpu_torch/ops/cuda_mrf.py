@@ -12,7 +12,10 @@ row n, for o, t [N, P, C] with cos = o t^T summed in float32:
   loss = sum_n -log(mean_p K)
 
 The kernels are bound by operations (2 N P^2 C multiply-adds for the
-forward, twice that for each backward kernel; see the source's header).
+forward, twice that for each backward kernel).  All three form their cos
+tiles with one tensor-core routine (bf16 directly, float32 through a 3xTF32
+split), so the backward's masks agree with the forward's statistics bit for
+bit; see the source's header.
 
 `mrf_core(o_n, t_n)` is what losses/vgg.py calls: a CPU tensor takes
 `mrf_core_plain`, the blocked dense form of the JAX `_mrf`, under

@@ -18,9 +18,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      PyTorch version on the card (max abs error, tolerance, median
      CUDA-event times, the card's bound; K1 also beside
      F.scaled_dot_product_attention, K2 beside the unfused token path it
-     replaces); then MrfCore against the dense mrf_core_plain on value and
-     both grads, and the K1, K2, K3 and K4 autograd Functions' grads
-     against the plain versions' autograd;
+     replaces); untimed, K1 at S 1024, a ragged S and head dims 16 and 64,
+     and K5 at a ragged P; then MrfCore against the dense mrf_core_plain
+     on value and both grads, and the K1, K2, K3 and K4 autograd
+     Functions' grads against the plain versions' autograd;
   4. inference end to end: a seeded full-width v3 model (n_feats 24,
      hidden_dim_ratio 4, patch 32, loadSize 256) with its ActNorms
      initialised on the first batch, saved as 1_net_G.pth, then
@@ -75,6 +76,7 @@ import glob
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -129,6 +131,11 @@ K2_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -7, 1e-2)}
 K2_GRAD_BAR = 1e-4
 # the ID-MRF layers of a 512x512 batch of 4: relu3_1 and relu4_1
 MRF_SHAPES = ((BATCH, (SIDE // 4) ** 2, 256), (BATCH, (SIDE // 8) ** 2, 512))
+# K1 off the model's shapes, checked untimed: S 1024, a ragged S, head
+# dims 16 and 64 ([N, S, E], heads); K5 at a ragged P
+K1_EXTRA = (((4, 1024, 384), 4), ((3, 100, 96), 4), ((2, 256, 64), 4),
+            ((2, 256, 256), 4))
+MRF_EXTRA = ((2, 1000, 256),)
 # K5 against its twins.  Forward statistics: both sum cos in float32 from
 # the same inputs, in another order (rtol 1e-4); an index may differ only
 # where its value ties the twin's within that tolerance.  do/dt: float32
@@ -139,6 +146,7 @@ MRF_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 1e-2)}
 # tensor cores, bf16 tensor cores, HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 495e12   # dense TF32 tensor cores
 
 
 def log(phase: str, msg: str) -> None:
@@ -169,10 +177,16 @@ def phase_build():
     lib = _build.library()
     log("build", f"{lib._name} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    kernel = ""
     with open(lib._name[:-3] + ".log") as fh:
         for line in fh:
-            if "Used" in line or "spill" in line:
-                log("build", "ptxas " + line.strip().split(": ", 1)[-1])
+            # the kernel's name and the start of its mangled template
+            # arguments, e.g. "attn_kernel IfLi24ELb0E" (float, 24, false)
+            named = re.search(r"entry function '[^']*?\d+([a-z_]+_kernel)([^']{0,12})", line)
+            if named:
+                kernel = f"{named.group(1)} {named.group(2)}"
+            elif "Used" in line or "spill" in line:
+                log("build", f"ptxas {kernel}: " + line.strip().split(": ", 1)[-1])
 
 
 def time_ms(torch, fn, reps=20, warmup=3) -> float:
@@ -198,6 +212,16 @@ def bound_ms(flops: float, nbytes: float, dtype: str):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def split_bound(dtype: str, tensor_flops: float, fma_flops: float = 0.0) -> dict:
+    """For a float32 kernel whose products run on the tensor cores as
+    3xTF32, the least time of that route: three TF32 products at 495
+    TFLOP/s, plus any float32 FMA work at 67; {} for other dtypes."""
+    if dtype != "float32":
+        return {}
+    return {"tf32x3_bound_ms": (3 * tensor_flops / PEAK_TF32
+                                + fma_flops / PEAK_FLOPS["float32"]) * 1e3}
 
 
 def kernel_cases(torch, spec):
@@ -265,6 +289,7 @@ def _record(results, kernel, dn, err, ms, plain_ms, bound, library_ms=None,
 def phase_kernels(torch, spec, results):
     """K1, K3, K4 against their plain versions; adds per (kernel, dtype)
     the max error and the summed times and bounds over the shapes."""
+    from cfen_vit_tpu_torch.ops import cuda_attn
     failures = []
     with torch.inference_mode():
         for (kernel, label, wrapper, plain, args, flops, elems,
@@ -285,15 +310,35 @@ def phase_kernels(torch, spec, results):
                 plain_ms = time_ms(torch, lambda: plain(*a))
                 lib_ms = library and time_ms(torch, lambda: library(*a))
                 bound = bound_ms(flops, elems * a[0].element_size(), dn)
+                split = split_bound(dn, flops) if kernel == "attention" else {}
                 lib = f", library {lib_ms:.4f} ms" if library else ""
                 log("kernel", f"{kernel} {label} {dn}: max_abs_err {err:.3g} "
                     f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}; "
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-                    f"bound {bound[0]:.4f} ms ({bound[1]})")
+                    f"bound {bound[0]:.4f} ms ({bound[1]})"
+                    + "".join(f", 3xTF32 bound {v:.4f} ms" for v in split.values()))
                 _record(results, kernel, dn, err, ms, plain_ms, bound,
-                        lib_ms or None)
+                        lib_ms or None, **split)
                 if not ok:
                     failures.append(f"{kernel} {label} {dn}")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        for (n, s, e), heads in K1_EXTRA:
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[-1]
+                q, k, v = (torch.randn(n, s, e, generator=g, device="cuda").to(dtype)
+                           for _ in range(3))
+                got = cuda_attn.block_attention(q, k, v, heads)
+                torch.cuda.synchronize()
+                ref = cuda_attn.attention_core(q, k, v, heads)
+                err = (got.float() - ref.float()).abs().max().item()
+                atol, rtol = TOL[dn]
+                ok = bool(torch.allclose(got.float(), ref.float(), atol=atol,
+                                         rtol=rtol))
+                log("kernel", f"attention [{n},{s},{e}] h{heads} (dh {e // heads}) "
+                    f"{dn}, untimed: max_abs_err {err:.3g} (atol {atol}, rtol "
+                    f"{rtol}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"attention [{n},{s},{e}] {dn}")
     if failures:
         raise AssertionError(f"kernels disagree with plain: {failures}")
 
@@ -423,7 +468,8 @@ def phase_mrf_kernels(torch, results):
     from cfen_vit_tpu_torch.ops import cuda_mrf as M
     failures = []
     with torch.inference_mode():
-        for n, p, c in MRF_SHAPES:
+        for n, p, c in MRF_SHAPES + MRF_EXTRA:
+            timed = (n, p, c) in MRF_SHAPES
             for dtype in (torch.float32, torch.bfloat16):
                 dn = str(dtype).split(".")[-1]
                 o, t = _mrf_inputs(torch, n, p, c, dtype, SEED)
@@ -433,16 +479,20 @@ def phase_mrf_kernels(torch, results):
                 torch.cuda.synchronize()
                 ref = M.mrf_forward_stats_plain(o, t)
                 err, ok, flips = _check_mrf_stats(torch, o, t, got, ref)
-                ms = time_ms(torch, lambda: M.mrf_forward_stats(o, t), 5, 1)
-                plain_ms = time_ms(torch, lambda: M.mrf_forward_stats_plain(
-                    o, t), 5, 1)
-                bound = bound_ms(2.0 * n * p * p * c,
-                                 2 * n * p * c * item + stat_bytes, dn)
+                cos_flops = 2.0 * n * p * p * c
+                if timed:
+                    ms = time_ms(torch, lambda: M.mrf_forward_stats(o, t), 5, 1)
+                    plain_ms = time_ms(torch, lambda: M.mrf_forward_stats_plain(
+                        o, t), 5, 1)
+                    bound = bound_ms(cos_flops, 2 * n * p * c * item + stat_bytes, dn)
+                    split = split_bound(dn, cos_flops)
+                    times = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                             f"{bound[0]:.3f} ms ({bound[1]})"
+                             + "".join(f", 3xTF32 bound {v:.3f} ms" for v in split.values()))
+                    _record(results, "mrf_fwd", dn, err, ms, plain_ms, bound, **split)
                 log("kernel", f"mrf_fwd [{n},{p},{c}] {dn}: max_abs_err "
                     f"{err:.3g} (rtol 1e-4, atol 1e-6; {flips} index ties) "
-                    f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain "
-                    f"{plain_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
-                _record(results, "mrf_fwd", dn, err, ms, plain_ms, bound)
+                    f"{'ok' if ok else 'FAIL'}" + (times if timed else ", untimed"))
                 if not ok:
                     failures.append(f"mrf_fwd [{n},{p},{c}] {dn}")
                 m, z, _, k, q_star = ref
@@ -463,16 +513,22 @@ def phase_mrf_kernels(torch, results):
                         atol = frac * b.abs().max().item()
                         err = max(err, (a - b).abs().max().item())
                         ok &= bool(torch.allclose(a, b, rtol=rtol, atol=atol))
-                    ms = time_ms(torch, lambda: kern(*args), 5, 1)
-                    plain_ms = time_ms(torch, lambda: twin(*args), 5, 1)
-                    bound = bound_ms(4.0 * n * p * p * c,
-                                     3 * n * p * c * item + stat_bytes, dn)
+                    if timed:
+                        ms = time_ms(torch, lambda: kern(*args), 5, 1)
+                        plain_ms = time_ms(torch, lambda: twin(*args), 5, 1)
+                        bound = bound_ms(2 * cos_flops,
+                                         3 * n * p * c * item + stat_bytes, dn)
+                        # the cos half on the tensor cores, the dcos product
+                        # in float32 FMA
+                        split = split_bound(dn, cos_flops, cos_flops)
+                        times = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                                 f"bound {bound[0]:.3f} ms ({bound[1]})"
+                                 + "".join(f", 3xTF32 + FFMA bound {v:.3f} ms"
+                                           for v in split.values()))
+                        _record(results, name, dn, err, ms, plain_ms, bound, **split)
                     log("kernel", f"{name} [{n},{p},{c}] {dn}: max_abs_err "
                         f"{err:.3g} (rtol {rtol}, atol {frac} x max) "
-                        f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, "
-                        f"plain {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
-                        f"({bound[1]})")
-                    _record(results, name, dn, err, ms, plain_ms, bound)
+                        f"{'ok' if ok else 'FAIL'}" + (times if timed else ", untimed"))
                     if not ok:
                         failures.append(f"{name} [{n},{p},{c}] {dn}")
     if failures:

@@ -173,6 +173,43 @@ def test_cuda_attention_matches_plain(cuda, dtype, n, s, e, h):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", cuda_attn.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 17, 100, 256, 1024])
+def test_cuda_attention_every_seq_and_head_dim(cuda, dtype, dh, s):
+    """The tensor-core K1 at every head dim it takes and S from 1 to
+    MAX_SEQ, ragged against its 64-key tiles and 64-query blocks."""
+    g = torch.Generator(device=cuda).manual_seed(s + dh)
+    q, k, v = (torch.randn(2, s, 4 * dh, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    before = cuda_attn.launches
+    with torch.inference_mode():
+        got = cuda_attn.block_attention(q, k, v, 4)
+        torch.cuda.synchronize()
+        ref = cuda_attn.attention_core(q, k, v, 4)
+    assert cuda_attn.launches == before + 1
+    atol, rtol = _CUDA_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_takes_inputs_off_16_byte_alignment(cuda, dtype):
+    """Contiguous views that start one element into their storage cannot
+    go through cp.async's 16-byte copies; the kernel loads them itself."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n, s, e = 2, 100, 96
+    q, k, v = (torch.randn(n * s * e + 1, generator=g, device=cuda).to(dtype)[1:]
+               .view(n, s, e) for _ in range(3))
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    with torch.inference_mode():
+        got = cuda_attn.block_attention(q, k, v, 4)
+        ref = cuda_attn.attention_core(q, k, v, 4)
+    atol, rtol = _CUDA_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_c,h,w", [(3, 64, 64), (1, 37, 70)])
 def test_cuda_tail_matches_plain(cuda, dtype, out_c, h, w):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -294,7 +331,9 @@ def _k2_block(dev, dtype, n, s, e, heads, seed=5):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,s,e,heads", [(2, 256, 384, 16), (3, 64, 96, 4),
-                                         (2, 100, 64, 4)])
+                                         (2, 100, 64, 4),
+                                         (8, 256, 96, 4),     # LViT L1, dh 24
+                                         (4, 256, 384, 4)])   # GViT L1, dh 96
 def test_cuda_fused_vit_matches_twin(cuda, dtype, n, s, e, heads):
     spec, vit, t = _k2_block(cuda, dtype, n, s, e, heads)
     w = vit.fused_weights()

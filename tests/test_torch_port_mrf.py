@@ -185,7 +185,48 @@ _GRAD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,p,c", [(2, 300, 128), (1, 1000, 256), (2, 640, 512)])
 def test_cuda_mrf_kernels_match_twins(cuda, dtype, n, p, c):
-    o, t = _card_inputs(cuda, dtype, n, p, c)
+    _check_kernels_against_twins(cuda, dtype, *_card_inputs(cuda, dtype, n, p, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", M.CHANNELS)
+def test_cuda_mrf_kernels_ragged_p_each_channel_count(cuda, dtype, c):
+    """P = 1000 is ragged against the forward's 128-row strips, the
+    backward's 32-row strips and the 64-row tiles at both ends."""
+    _check_kernels_against_twins(cuda, dtype, *_card_inputs(cuda, dtype, 2, 1000, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mrf_ties_take_the_first_index(cuda, dtype):
+    """Rows 2i and 2i + 1 of o, and of t, are equal: every p* and q* is a
+    tie, which the kernels resolve to the first index as the twins do,
+    though their fragments visit columns out of order."""
+    o, t = _card_inputs(cuda, dtype, 2, 300, 256)
+    o, t = (x.view(2, 150, 2, 256)[:, :, :1].expand(2, 150, 2, 256)
+            .reshape(2, 300, 256).contiguous() for x in (o, t))
+    got = M.mrf_forward_stats(o, t)
+    ref = M.mrf_forward_stats_plain(o, t)
+    for i, name in ((2, "p*"), (4, "q*")):
+        assert torch.equal(got[i], ref[i]), name
+        assert bool((got[i] % 2 == 0).all()), name
+    _check_kernels_against_twins(cuda, dtype, o, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mrf_kernels_take_inputs_off_16_byte_alignment(cuda, dtype):
+    """Contiguous views one element into their storage cannot go through
+    cp.async's 16-byte copies; cos_sweep loads them itself."""
+    o, t = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+            for x in _card_inputs(cuda, dtype, 2, 300, 128))
+    assert o.data_ptr() % 16 != 0 and o.is_contiguous()
+    _check_kernels_against_twins(cuda, dtype, o, t)
+
+
+def _check_kernels_against_twins(cuda, dtype, o, t):
+    n, p, _ = o.shape
     before = (M.fwd_launches, M.do_launches, M.dt_launches)
     got = M.mrf_forward_stats(o, t)
     ref = M.mrf_forward_stats_plain(o, t)
