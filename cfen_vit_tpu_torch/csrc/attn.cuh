@@ -219,7 +219,7 @@ template <typename T, int DH, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             T* __restrict__ o, int s, int ld_in, int ld_out, int heads, float scale,
-            int slots, bool async_ok) {
+            int slots) {
   using L = Layout<T, DH>;
   constexpr int LD = L::LD;
   constexpr bool kScaleLogits = kFused && sizeof(T) == 2;
@@ -250,14 +250,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     for (int i = tid; i < kTK * kPer; i += kThreads) {
       const int r = i / kPer, c = (i % kPer) * kChunk;
       const bool ok = key0 + r < s;
-      const T* gp = src + static_cast<size_t>(key0 + r) * ld_in + c;
-      T* sp = dst + r * LD + c;
-      if (async_ok) {
-        mma::cp_async16(sp, ok ? gp : src, ok);
-      } else {
-#pragma unroll
-        for (int e = 0; e < kChunk; ++e) sp[e] = ok ? gp[e] : from_f<T>(0.f);
-      }
+      mma::cp_async16(dst + r * LD + c, ok ? src + static_cast<size_t>(key0 + r) * ld_in + c : src,
+                      ok);
     }
   };
   // the raw queries with the first K group; each warp scales its own as
@@ -409,14 +403,13 @@ cudaError_t launch(const T* q, const T* k, const T* v, T* o, int n, int s, int l
   }
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
   // cp.async moves 16-byte chunks: q, k, v and their row stride must be
-  // aligned
-  const bool async_ok = (reinterpret_cast<uintptr_t>(q) % 16 == 0) &&
-                        (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
-                        (reinterpret_cast<uintptr_t>(v) % 16 == 0) &&
-                        (static_cast<size_t>(ld_in) * sizeof(T) % 16 == 0);
+  // aligned (the wrapper copies an input that is not)
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      static_cast<size_t>(ld_in) * sizeof(T) % 16 != 0)
+    return cudaErrorMisalignedAddress;
   dim3 grid(n * heads, (s + kQB - 1) / kQB);
   attn_kernel<T, DH, kFused><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, s, ld_in, ld_out, heads, scale, slots, async_ok);
+      q, k, v, o, s, ld_in, ld_out, heads, scale, slots);
   return cudaGetLastError();
 }
 

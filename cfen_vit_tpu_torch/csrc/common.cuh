@@ -5,6 +5,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cfen {
 
@@ -33,6 +34,9 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 template <typename T> __device__ __forceinline__ float add_bias(float acc, float bias) {
   return round_to<T>(round_to<T>(acc) + bias);
 }
+
+// cp.async's 16-byte copies need 16-byte aligned global addresses
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Opts a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename K>

@@ -150,8 +150,7 @@ __device__ __forceinline__ int frag_col(int nj, int e) {
 template <typename T, int C, int BM, int BN, int WM, int WN, class Epi>
 __device__ __forceinline__ void cos_sweep(T* ring, const T* __restrict__ a, int a_row0,
                                           int a_step, const T* __restrict__ b, int b_row0,
-                                          int b_step, int p, int tiles, bool async_ok,
-                                          Epi&& epi) {
+                                          int b_step, int p, int tiles, Epi&& epi) {
   constexpr int kElt = static_cast<int>(sizeof(T));
   constexpr int BK = 64 / kElt, LD = kRowBytes / kElt, NK = C / BK;
   constexpr int MI = WM / 16, NJ = WN / 8;
@@ -173,14 +172,7 @@ __device__ __forceinline__ void cos_sweep(T* ring, const T* __restrict__ a, int 
         const int row = is_a ? ar + r : br + r - BM;
         const T* src = is_a ? a : b;
         const bool ok = row < p;
-        const T* gp = src + static_cast<size_t>(ok ? row : 0) * C + k0 + c;
-        T* sp = st + r * LD + c;
-        if (async_ok) {
-          cp_async16(sp, gp, ok);
-        } else {
-#pragma unroll
-          for (int e = 0; e < kChunk; ++e) sp[e] = ok ? gp[e] : cfen::from_f<T>(0.f);
-        }
+        cp_async16(st + r * LD + c, src + static_cast<size_t>(ok ? row : 0) * C + k0 + c, ok);
       }
     }
     cfen::mma::cp_async_commit();
@@ -258,7 +250,7 @@ template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
 mrf_fwd_kernel(const T* __restrict__ o, const T* __restrict__ t, int p, float* __restrict__ m_out,
                float* __restrict__ z_out, long long* __restrict__ pstar_out,
-               unsigned long long* __restrict__ colmax, bool async_ok) {
+               unsigned long long* __restrict__ colmax) {
   constexpr int BM = kFwdRows, BN = kT, WM = 32, WN = 32, MI = WM / 16, NJ = WN / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
@@ -285,8 +277,7 @@ mrf_fwd_kernel(const T* __restrict__ o, const T* __restrict__ t, int p, float* _
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) { mn[mi][h] = INFINITY; arg[mi][h] = p; }
-  cos_sweep<T, C, BM, BN, WM, WN>(ring, on, q0, 0, tn, 0, BN, p, tiles, async_ok,
-                                  [&](int tile, Acc& acc) {
+  cos_sweep<T, C, BM, BN, WM, WN>(ring, on, q0, 0, tn, 0, BN, p, tiles, [&](int tile, Acc& acc) {
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -334,8 +325,7 @@ mrf_fwd_kernel(const T* __restrict__ o, const T* __restrict__ t, int p, float* _
 
   // pass 2: z = sum_p be
   float zs[MI][2] = {};
-  cos_sweep<T, C, BM, BN, WM, WN>(ring, on, q0, 0, tn, 0, BN, p, tiles, async_ok,
-                                  [&](int tile, Acc& acc) {
+  cos_sweep<T, C, BM, BN, WM, WN>(ring, on, q0, 0, tn, 0, BN, p, tiles, [&](int tile, Acc& acc) {
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -371,8 +361,7 @@ mrf_fwd_kernel(const T* __restrict__ o, const T* __restrict__ t, int p, float* _
     for (int h = 0; h < 2; ++h) zrow[mi][h] = row_z[frag_row<BM, WM>(mi, 2 * h)];
 
   // pass 3: cs = be / z; column max over the strip, first q on ties
-  cos_sweep<T, C, BM, BN, WM, WN>(ring, on, q0, 0, tn, 0, BN, p, tiles, async_ok,
-                                  [&](int tile, Acc& acc) {
+  cos_sweep<T, C, BM, BN, WM, WN>(ring, on, q0, 0, tn, 0, BN, p, tiles, [&](int tile, Acc& acc) {
 #pragma unroll
     for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
@@ -417,8 +406,7 @@ __global__ void __launch_bounds__(kThreads)
 mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
                const float* __restrict__ m, const float* __restrict__ z,
                const float* __restrict__ dz, const long long* __restrict__ qstar,
-               const float* __restrict__ dk, T* __restrict__ grad, float* __restrict__ dm_out,
-               bool async_ok) {
+               const float* __restrict__ dk, T* __restrict__ grad, float* __restrict__ dm_out) {
   constexpr int LD = C + 1;
   constexpr int LG = kT + 1;
   constexpr int kCols = C / 32;          // grad columns per thread: lane + 32 k
@@ -529,9 +517,9 @@ mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
   };
   const int n_tiles = (p + kT - 1) / kT;
   if (kRowsQ)
-    cos_sweep<T, C, BM, BN, WM, WN>(ring, sn, r0, 0, tl, 0, kT, p, n_tiles, async_ok, epi);
+    cos_sweep<T, C, BM, BN, WM, WN>(ring, sn, r0, 0, tl, 0, kT, p, n_tiles, epi);
   else
-    cos_sweep<T, C, BM, BN, WM, WN>(ring, tl, 0, kT, sn, r0, 0, p, n_tiles, async_ok, epi);
+    cos_sweep<T, C, BM, BN, WM, WN>(ring, tl, 0, kT, sn, r0, 0, p, n_tiles, epi);
 
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -564,22 +552,20 @@ constexpr size_t bwd_smem() {
   return ring_bytes(kR, kT) + sizeof(float) * (kT * (C + 1) + 2 * kR * (kT + 1));
 }
 
-// cp.async moves 16-byte chunks: both operands must start on 16 bytes
-// (rows of C >= 128 elements keep every chunk aligned after that)
-inline bool aligned16(const void* a, const void* b) {
-  return reinterpret_cast<uintptr_t>(a) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
-}
-
 template <typename T, int C>
 cudaError_t launch_fwd(const void* o, const void* t, void* m, void* z, void* pstar, void* colmax,
                        int n, int p, cudaStream_t stream) {
+  // cp.async moves 16-byte chunks: both operands must start on 16 bytes
+  // (the wrapper copies one that does not; rows of C >= 128 elements keep
+  // every chunk aligned after that)
+  if (!cfen::aligned16(o) || !cfen::aligned16(t)) return cudaErrorMisalignedAddress;
   cudaError_t err = cfen::allow_smem(mrf_fwd_kernel<T, C>, fwd_smem());
   if (err != cudaSuccess) return err;
   dim3 grid((p + kFwdRows - 1) / kFwdRows, n);
   mrf_fwd_kernel<T, C><<<grid, kThreads, fwd_smem(), stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(t), p, static_cast<float*>(m),
       static_cast<float*>(z), static_cast<long long*>(pstar),
-      static_cast<unsigned long long*>(colmax), aligned16(o, t));
+      static_cast<unsigned long long*>(colmax));
   return cudaGetLastError();
 }
 
@@ -587,6 +573,7 @@ template <typename T, int C, bool kRowsQ>
 cudaError_t launch_bwd(const void* strip, const void* tiles, const void* m, const void* z,
                        const void* dz, const void* qstar, const void* dk, void* grad, void* dm,
                        int n, int p, cudaStream_t stream) {
+  if (!cfen::aligned16(strip) || !cfen::aligned16(tiles)) return cudaErrorMisalignedAddress;
   cudaError_t err = cfen::allow_smem(mrf_bwd_kernel<T, C, kRowsQ>, bwd_smem<C>());
   if (err != cudaSuccess) return err;
   dim3 grid((p + kR - 1) / kR, n);
@@ -594,7 +581,7 @@ cudaError_t launch_bwd(const void* strip, const void* tiles, const void* m, cons
       static_cast<const T*>(strip), static_cast<const T*>(tiles), p,
       static_cast<const float*>(m), static_cast<const float*>(z), static_cast<const float*>(dz),
       static_cast<const long long*>(qstar), static_cast<const float*>(dk), static_cast<T*>(grad),
-      static_cast<float*>(dm), aligned16(strip, tiles));
+      static_cast<float*>(dm));
   return cudaGetLastError();
 }
 

@@ -153,6 +153,13 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def aligned16(*tensors: torch.Tensor) -> tuple:
+    """The kernels load their inputs with cp.async's 16-byte copies: a
+    tensor whose data does not start on 16 bytes (a view one element into
+    its storage) is copied to one that does."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
+
+
 def recompute_vjp(plain, inputs, needs_grad, g) -> tuple:
     """A kernel's backward: run `plain` on `inputs` again under autograd and
     return its vector-Jacobian product with `g`, None where no gradient is

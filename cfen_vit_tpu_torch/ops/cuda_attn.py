@@ -94,6 +94,7 @@ def _launch(q, k, v, num_heads):
         raise ValueError(f"block_attention: head dim {e / num_heads} (E {e}, "
                          f"{num_heads} heads) not in {HEAD_DIMS} or S {s} > "
                          f"{MAX_SEQ}")
+    q, k, v = _build.aligned16(q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _build.library().cfen_attn_fwd(

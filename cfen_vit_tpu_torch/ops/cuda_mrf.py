@@ -145,6 +145,7 @@ def mrf_forward_stats(o, t):
     if o.device.type == "cpu":
         return mrf_forward_stats_plain(o, t)
     _check("mrf_forward_stats", o, t)
+    o, t = _build.aligned16(o, t)
     n, p, c = o.shape
     f32 = dict(device=o.device, dtype=torch.float32)
     m, z = torch.empty((n, p), **f32), torch.empty((n, p), **f32)
@@ -175,6 +176,7 @@ def mrf_bwd_do(o, t, m, z, dz, q_star, dk):
     if o.device.type == "cpu":
         return mrf_bwd_do_plain(o, t, m, z, dz, q_star, dk)
     _check("mrf_bwd_do", o, t, _bwd_stats(m, z, dz, q_star, dk))
+    o, t = _build.aligned16(o, t)
     n, p, c = o.shape
     do = torch.empty_like(o)
     dm = torch.empty((n, p), device=o.device, dtype=torch.float32)
@@ -194,6 +196,7 @@ def mrf_bwd_dt(o, t, m, z, dz, q_star, dk):
     if o.device.type == "cpu":
         return mrf_bwd_dt_plain(o, t, m, z, dz, q_star, dk)
     _check("mrf_bwd_dt", o, t, _bwd_stats(m, z, dz, q_star, dk))
+    o, t = _build.aligned16(o, t)
     n, p, c = o.shape
     dt = torch.empty_like(t)
     with torch.cuda.device(o.device):

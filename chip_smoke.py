@@ -18,8 +18,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      PyTorch version on the card (max abs error, tolerance, median
      CUDA-event times, the card's bound; K1 also beside
      F.scaled_dot_product_attention, K2 beside the unfused token path it
-     replaces); untimed, K1 at S 1024, a ragged S and head dims 16 and 64,
-     and K5 at a ragged P; then MrfCore against the dense mrf_core_plain
+     replaces; K1 and SDPA also in five interleaved rounds, summed over
+     the six shapes); untimed, K1 at S 1024, a ragged S and head dims 16
+     and 64, and K5 at a ragged P; then MrfCore against the dense mrf_core_plain
      on value and both grads, and the K1, K2, K3 and K4 autograd
      Functions' grads against the plain versions' autograd;
   4. inference end to end: a seeded full-width v3 model (n_feats 24,
@@ -85,6 +86,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from collections import defaultdict
 from contextlib import ExitStack, redirect_stdout
 from dataclasses import replace
 from unittest import mock
@@ -214,14 +216,43 @@ def bound_ms(flops: float, nbytes: float, dtype: str):
                                        else "bytes")
 
 
-def split_bound(dtype: str, tensor_flops: float, fma_flops: float = 0.0) -> dict:
+def split_bound(dtype: str, tensor_flops: float, fma_flops: float = 0.0):
     """For a float32 kernel whose products run on the tensor cores as
-    3xTF32, the least time of that route: three TF32 products at 495
-    TFLOP/s, plus any float32 FMA work at 67; {} for other dtypes."""
+    3xTF32, the least time of that route in ms: three TF32 products at 495
+    TFLOP/s, plus any float32 FMA work at 67; None for other dtypes.  It is
+    logged beside the kernel's times, not written to the kernels line."""
     if dtype != "float32":
-        return {}
-    return {"tf32x3_bound_ms": (3 * tensor_flops / PEAK_TF32
-                                + fma_flops / PEAK_FLOPS["float32"]) * 1e3}
+        return None
+    return (3 * tensor_flops / PEAK_TF32
+            + fma_flops / PEAK_FLOPS["float32"]) * 1e3
+
+
+def _log_split_sums(sums):
+    """The 3xTF32 bounds summed per kernel over the timed float32 shapes."""
+    for kernel, v in sums.items():
+        log("kernel", f"{kernel} float32: 3xTF32 bound summed over the timed "
+            f"shapes {v:.4f} ms")
+
+
+def _k1_against_sdpa(torch, cases, rounds=5):
+    """K1 and F.scaled_dot_product_attention summed over the six shapes,
+    timed in `rounds` interleaved rounds per dtype (the order flips each
+    round), so that drift between runs shows as the rounds' spread."""
+    for dn in ("float32", "bfloat16"):
+        sums = {"K1": [], "SDPA": []}
+        for rnd in range(rounds):
+            order = ("K1", "SDPA") if rnd % 2 == 0 else ("SDPA", "K1")
+            for name in order:
+                sums[name].append(sum(
+                    time_ms(torch, lambda: (wrapper if name == "K1" else library)(*a))
+                    for d, a, wrapper, library in cases if d == dn))
+        wins = sum(k < l for k, l in zip(sums["K1"], sums["SDPA"]))
+        log("kernel", f"attention {dn}, six shapes summed, {rounds} interleaved "
+            f"rounds: K1 {', '.join(f'{v:.4f}' for v in sums['K1'])} ms "
+            f"(median {statistics.median(sums['K1']):.4f}); SDPA "
+            f"{', '.join(f'{v:.4f}' for v in sums['SDPA'])} ms (median "
+            f"{statistics.median(sums['SDPA']):.4f}); K1 faster in {wins} of "
+            f"{rounds} rounds")
 
 
 def kernel_cases(torch, spec):
@@ -273,6 +304,8 @@ def kernel_cases(torch, spec):
 
 def _record(results, kernel, dn, err, ms, plain_ms, bound, library_ms=None,
             **summed):
+    """Adds one shape's numbers to the (kernel, dtype) entry of the kernels
+    line: measured times and the bound, summed over the shapes."""
     r = results.setdefault((kernel, dn), {
         "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
         "bound_by": bound[1], "library_ms": None})
@@ -290,7 +323,7 @@ def phase_kernels(torch, spec, results):
     """K1, K3, K4 against their plain versions; adds per (kernel, dtype)
     the max error and the summed times and bounds over the shapes."""
     from cfen_vit_tpu_torch.ops import cuda_attn
-    failures = []
+    failures, split_sums, k1_cases = [], defaultdict(float), []
     with torch.inference_mode():
         for (kernel, label, wrapper, plain, args, flops, elems,
              library) in kernel_cases(torch, spec):
@@ -310,17 +343,23 @@ def phase_kernels(torch, spec, results):
                 plain_ms = time_ms(torch, lambda: plain(*a))
                 lib_ms = library and time_ms(torch, lambda: library(*a))
                 bound = bound_ms(flops, elems * a[0].element_size(), dn)
-                split = split_bound(dn, flops) if kernel == "attention" else {}
+                split = split_bound(dn, flops) if kernel == "attention" else None
                 lib = f", library {lib_ms:.4f} ms" if library else ""
                 log("kernel", f"{kernel} {label} {dn}: max_abs_err {err:.3g} "
                     f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}; "
                     f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
                     f"bound {bound[0]:.4f} ms ({bound[1]})"
-                    + "".join(f", 3xTF32 bound {v:.4f} ms" for v in split.values()))
+                    + (f", 3xTF32 bound {split:.4f} ms" if split else ""))
                 _record(results, kernel, dn, err, ms, plain_ms, bound,
-                        lib_ms or None, **split)
+                        lib_ms or None)
+                if split:
+                    split_sums[kernel] += split
+                if kernel == "attention":
+                    k1_cases.append((dn, a, wrapper, library))
                 if not ok:
                     failures.append(f"{kernel} {label} {dn}")
+        _log_split_sums(split_sums)
+        _k1_against_sdpa(torch, k1_cases)
         g = torch.Generator(device="cuda").manual_seed(SEED + 4)
         for (n, s, e), heads in K1_EXTRA:
             for dtype in (torch.float32, torch.bfloat16):
@@ -466,7 +505,7 @@ def _check_mrf_stats(torch, o, t, got, ref):
 def phase_mrf_kernels(torch, results):
     """K5's three kernels against their twins at the ID-MRF shapes."""
     from cfen_vit_tpu_torch.ops import cuda_mrf as M
-    failures = []
+    failures, split_sums = [], defaultdict(float)
     with torch.inference_mode():
         for n, p, c in MRF_SHAPES + MRF_EXTRA:
             timed = (n, p, c) in MRF_SHAPES
@@ -488,8 +527,10 @@ def phase_mrf_kernels(torch, results):
                     split = split_bound(dn, cos_flops)
                     times = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                              f"{bound[0]:.3f} ms ({bound[1]})"
-                             + "".join(f", 3xTF32 bound {v:.3f} ms" for v in split.values()))
-                    _record(results, "mrf_fwd", dn, err, ms, plain_ms, bound, **split)
+                             + (f", 3xTF32 bound {split:.3f} ms" if split else ""))
+                    _record(results, "mrf_fwd", dn, err, ms, plain_ms, bound)
+                    if split:
+                        split_sums["mrf_fwd"] += split
                 log("kernel", f"mrf_fwd [{n},{p},{c}] {dn}: max_abs_err "
                     f"{err:.3g} (rtol 1e-4, atol 1e-6; {flips} index ties) "
                     f"{'ok' if ok else 'FAIL'}" + (times if timed else ", untimed"))
@@ -523,14 +564,17 @@ def phase_mrf_kernels(torch, results):
                         split = split_bound(dn, cos_flops, cos_flops)
                         times = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                                  f"bound {bound[0]:.3f} ms ({bound[1]})"
-                                 + "".join(f", 3xTF32 + FFMA bound {v:.3f} ms"
-                                           for v in split.values()))
-                        _record(results, name, dn, err, ms, plain_ms, bound, **split)
+                                 + (f", 3xTF32 + FFMA bound {split:.3f} ms"
+                                    if split else ""))
+                        _record(results, name, dn, err, ms, plain_ms, bound)
+                        if split:
+                            split_sums[name] += split
                     log("kernel", f"{name} [{n},{p},{c}] {dn}: max_abs_err "
                         f"{err:.3g} (rtol {rtol}, atol {frac} x max) "
                         f"{'ok' if ok else 'FAIL'}" + (times if timed else ", untimed"))
                     if not ok:
                         failures.append(f"{name} [{n},{p},{c}] {dn}")
+    _log_split_sums(split_sums)
     if failures:
         raise AssertionError(f"K5 kernels disagree with their twins: "
                              f"{failures}")

@@ -195,15 +195,18 @@ def test_cuda_attention_every_seq_and_head_dim(cuda, dtype, dh, s):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_attention_takes_inputs_off_16_byte_alignment(cuda, dtype):
     """Contiguous views that start one element into their storage cannot
-    go through cp.async's 16-byte copies; the kernel loads them itself."""
+    go through cp.async's 16-byte copies; the wrapper copies them to
+    aligned storage, and the kernel still launches."""
     g = torch.Generator(device=cuda).manual_seed(3)
     n, s, e = 2, 100, 96
     q, k, v = (torch.randn(n * s * e + 1, generator=g, device=cuda).to(dtype)[1:]
                .view(n, s, e) for _ in range(3))
     assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    before = cuda_attn.launches
     with torch.inference_mode():
         got = cuda_attn.block_attention(q, k, v, 4)
         ref = cuda_attn.attention_core(q, k, v, 4)
+    assert cuda_attn.launches == before + 1
     atol, rtol = _CUDA_TOL[dtype]
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
 

@@ -218,7 +218,7 @@ def test_cuda_mrf_ties_take_the_first_index(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_mrf_kernels_take_inputs_off_16_byte_alignment(cuda, dtype):
     """Contiguous views one element into their storage cannot go through
-    cp.async's 16-byte copies; cos_sweep loads them itself."""
+    cp.async's 16-byte copies; the wrappers copy them to aligned storage."""
     o, t = (torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
             for x in _card_inputs(cuda, dtype, 2, 300, 128))
     assert o.data_ptr() % 16 != 0 and o.is_contiguous()
