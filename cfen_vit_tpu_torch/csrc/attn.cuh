@@ -25,13 +25,26 @@
 //
 // Design: FlashAttention-2's warp layout on mma.sync.  A block of 4 warps
 // owns 64 query rows of one (row n, head); each warp owns 16 of them.
-// K and V come into shared memory in 64-key tiles with cp.async
-// (zero-filled past S, so the ragged edge adds nothing).  At S <= 256 (the
-// model's shapes) every tile has a slot: the raw queries with all of K,
-// then all of V, are requested at once (each warp scales its queries as it
-// reads their fragments), and the two passes below run without a barrier
-// between tiles.  Longer S streams
-// two slots each of K and V, double-buffered, once per pass.
+// K and V come into shared memory in tiles of TK keys (64, or 32 where
+// two 64-key slots each of K and V do not fit: float32 at dh above 128)
+// with cp.async (zero-filled past S, so the ragged edge adds nothing).
+// When every tile has a slot (S <= kSlots TK: 256 keys up to dh 96 and
+// bf16 dh 192, fewer above as shared memory allows) the raw queries with
+// all of K, then all of V, are requested at once (each warp scales its
+// queries as it reads their fragments), and the two passes below run
+// without a barrier between tiles.  Longer S streams two slots each of K
+// and V, double-buffered, once per pass; any S runs that way.
+// Head dims: the kernel is instantiated at DH in {8, 16, 24, 32, 48, 64,
+// 96, 128, 192, 256}; a head dim dh <= 256 runs in the smallest DH >= dh,
+// its columns past dh zero in shared memory (they add nothing to Q K^T, and
+// the output's are not stored), with the scale 1/sqrt(dh) of the true dh
+// from the launcher.  Every load is a cp.async, in chunks of 16 bytes, or
+// of 8 or 4 where a head's row, the row stride or the address of q, k or v
+// is not a 16-byte multiple (bf16 dh 6 and 12; K2's packed projection at
+// such an E); the zero fill past S and past dh is cp.async's own.  The
+// launcher refuses what no chunk of 4 bytes divides (an odd bf16 dh; the
+// wrappers' `takes` rejects it first, and the K1 wrapper copies an input
+// that does not start on 16 bytes).
 // The softmax must see the final row max and sum before any probability
 // is rounded (the bf16 rounding points above), so the output cannot be
 // rescaled online; instead pass 1 runs QK^T over every tile and keeps the
@@ -73,9 +86,7 @@ namespace attn {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kQB = 16 * kWarps;  // query rows per block
-constexpr int kTK = 64;           // keys per shared-memory tile
-constexpr int kNT = kTK / 8;      // 8-key n-tiles of the logits per tile
-constexpr int kSlots = 4;         // K and V tiles held at once: S <= 256 whole
+constexpr int kMaxDH = 256;       // the largest head dim dispatch_dh takes
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -93,16 +104,26 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// bytes of the queries and `slots` tiles of `tk` keys each of K and V, in
+// rows of ld elements of elt bytes
+constexpr size_t smem_bytes(size_t elt, int ld, int slots, int tk) {
+  return elt * ld * (static_cast<size_t>(kQB) + 2 * static_cast<size_t>(slots) * tk);
+}
+
 template <typename T, int DH>
 struct Layout {
   static constexpr int kWords = DH * static_cast<int>(sizeof(T)) / 4;
   static constexpr int kLdWords = kWords - kWords % 8 + 4;  // 4 mod 8
   static constexpr int LD = kLdWords * 4 / static_cast<int>(sizeof(T));
-  static constexpr int kTile = kTK * LD;  // elements of one K or V tile
-  // the queries and `slots` tiles each of K and V
-  static constexpr size_t smem(int slots) {
-    return sizeof(T) * (static_cast<size_t>(kQB) * LD + 2 * static_cast<size_t>(slots) * kTile);
-  }
+  // keys per tile: 64, or 32 where two 64-key slots each of K and V do not fit
+  static constexpr int TK = smem_bytes(sizeof(T), LD, 2, 64) <= kSmemMax ? 64 : 32;
+  static constexpr int kNT = TK / 8;     // 8-key n-tiles of the logits per tile
+  static constexpr int kTile = TK * LD;  // elements of one K or V tile
+  // K and V tiles held at once when every tile has a slot
+  static constexpr int kSlots = smem_bytes(sizeof(T), LD, 4, TK) <= kSmemMax   ? 4
+                                : smem_bytes(sizeof(T), LD, 3, TK) <= kSmemMax ? 3
+                                                                               : 2;
+  static constexpr size_t smem(int slots) { return smem_bytes(sizeof(T), LD, slots, TK); }
 };
 
 // Two bf16 queries as the A operand: raw (kScaleQ false) or times the
@@ -119,8 +140,8 @@ __device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* p, float scale) 
 // as they are read when kScaleQ.
 template <typename T, int DH, bool kScaleQ>
 __device__ __forceinline__ void logits_tile(const T* qs, const T* kt, int row0, int g, int t,
-                                            float scale, float s[kNT][4]) {
-  constexpr int LD = Layout<T, DH>::LD;
+                                            float scale, float s[Layout<T, DH>::kNT][4]) {
+  constexpr int LD = Layout<T, DH>::LD, kNT = Layout<T, DH>::kNT;
 #pragma unroll
   for (int j = 0; j < kNT; ++j)
 #pragma unroll
@@ -168,15 +189,15 @@ __device__ __forceinline__ void logits_tile(const T* qs, const T* kt, int row0, 
   }
 }
 
-// acc[jd] += p (16 x kTK, in the logits' accumulator layout) times the V
-// tile vt (kTK x DH); under bf16 p is rounded to bf16 as it is packed
+// acc[jd] += p (16 x TK, in the logits' accumulator layout) times the V
+// tile vt (TK x DH); under bf16 p is rounded to bf16 as it is packed
 template <typename T, int DH>
-__device__ __forceinline__ void pv_tile(const float p[kNT][4], const T* vt, int lane, int g,
-                                        int t, float acc[DH / 8][4]) {
-  constexpr int LD = Layout<T, DH>::LD;
+__device__ __forceinline__ void pv_tile(const float p[Layout<T, DH>::kNT][4], const T* vt,
+                                        int lane, int g, int t, float acc[DH / 8][4]) {
+  constexpr int LD = Layout<T, DH>::LD, kNT = Layout<T, DH>::kNT;
   if constexpr (sizeof(T) == 2) {
 #pragma unroll
-    for (int kk = 0; kk < kTK / 16; ++kk) {
+    for (int kk = 0; kk < kNT / 2; ++kk) {
       const uint32_t a[4] = {mma::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
                              mma::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
                              mma::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
@@ -215,54 +236,57 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// dh: the true head dim (<= DH); the loads move 16 >> shift bytes each
 template <typename T, int DH, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ o, int s, int ld_in, int ld_out, int heads, float scale,
-            int slots) {
+            T* __restrict__ o, int s, int ld_in, int ld_out, int heads, int dh, float scale,
+            int slots, int shift) {
   using L = Layout<T, DH>;
-  constexpr int LD = L::LD;
+  constexpr int LD = L::LD, TK = L::TK, kNT = L::kNT;
   constexpr bool kScaleLogits = kFused && sizeof(T) == 2;
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [kQB][LD] queries
-  T* ks = qs + kQB * LD;                   // [slots][kTK][LD] K tiles
-  T* vs = ks + slots * L::kTile;           // [slots][kTK][LD] V tiles
+  T* ks = qs + kQB * LD;                   // [slots][TK][LD] K tiles
+  T* vs = ks + slots * L::kTile;           // [slots][TK][LD] V tiles
 
   const int n = blockIdx.x / heads, h = blockIdx.x % heads;
   const int q0 = blockIdx.y * kQB;
-  const size_t in_base = static_cast<size_t>(n) * s * ld_in + static_cast<size_t>(h) * DH;
-  const size_t out_base = static_cast<size_t>(n) * s * ld_out + static_cast<size_t>(h) * DH;
+  const size_t in_base = static_cast<size_t>(n) * s * ld_in + static_cast<size_t>(h) * dh;
+  const size_t out_base = static_cast<size_t>(n) * s * ld_out + static_cast<size_t>(h) * dh;
   const T* kn = k + in_base;
   const T* vn = v + in_base;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int row0 = 16 * warp;            // the warp's rows within the block
   const bool active = q0 + row0 < s;     // warp-uniform
-  const int tiles = (s + kTK - 1) / kTK;
-  // every K and V tile has a slot (S <= kSlots * kTK): each is loaded
-  // once, up front; else two slots each, streamed per pass
+  const int tiles = (s + TK - 1) / TK;
+  // every K and V tile has a slot (S <= slots * TK): each is loaded once,
+  // up front; else two slots each, streamed per pass
   const bool resident = tiles <= slots;
 
-  // keys [key0, key0 + kTK) of src into dst; zeros past s
-  auto load = [&](T* dst, const T* src, int key0) {
-    constexpr int kChunk = 16 / static_cast<int>(sizeof(T));
-    constexpr int kPer = DH / kChunk;
-    for (int i = tid; i < kTK * kPer; i += kThreads) {
-      const int r = i / kPer, c = (i % kPer) * kChunk;
-      const bool ok = key0 + r < s;
-      mma::cp_async16(dst + r * LD + c, ok ? src + static_cast<size_t>(key0 + r) * ld_in + c : src,
-                      ok);
+  // rows [key0, key0 + rows) of src into dst; zeros past s and in the
+  // columns past dh
+  auto load = [&](T* dst, const T* src, int key0, int rows) {
+    constexpr int kPer16 = DH * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks a row
+    const int per = kPer16 << shift, elems = (16 / static_cast<int>(sizeof(T))) >> shift;
+    for (int i = tid; i < rows * per; i += kThreads) {
+      const int r = (i >> shift) / kPer16, c = (i - r * per) * elems;
+      const bool ok = key0 + r < s && c < dh;
+      mma::cp_async_chunk(dst + r * LD + c,
+                          ok ? src + static_cast<size_t>(key0 + r) * ld_in + c : src, ok,
+                          shift);
     }
   };
   // the raw queries with the first K group; each warp scales its own as
   // it reads them
-  load(qs, q + in_base, q0);
+  load(qs, q + in_base, q0, kQB);
   if (resident) {
-    for (int it = 0; it < tiles; ++it) load(ks + it * L::kTile, kn, it * kTK);
+    for (int it = 0; it < tiles; ++it) load(ks + it * L::kTile, kn, it * TK, TK);
     mma::cp_async_commit();
-    for (int it = 0; it < tiles; ++it) load(vs + it * L::kTile, vn, it * kTK);
+    for (int it = 0; it < tiles; ++it) load(vs + it * L::kTile, vn, it * TK, TK);
   } else {
-    load(ks, kn, 0);
+    load(ks, kn, 0, TK);
   }
   mma::cp_async_commit();
 
@@ -272,19 +296,19 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const float c = kScaleLogits ? scale * kLog2e : kLog2e;
   auto logits = [&](int it, const T* kt, float sc[kNT][4]) {
     logits_tile<T, DH, !kScaleLogits>(qs, kt, row0, g, t, scale, sc);
-    if ((it + 1) * kTK <= s) return;   // no key past s in this tile
+    if ((it + 1) * TK <= s) return;   // no key past s in this tile
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (it * kTK + 8 * j + 2 * t + (e & 1) >= s) sc[j][e] = -INFINITY;
+        if (it * TK + 8 * j + 2 * t + (e & 1) >= s) sc[j][e] = -INFINITY;
   };
 
   // pass 1: row max and online-rescaled sum of exp, rows g and g + 8
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
   for (int it = 0; it < tiles; ++it) {
     if (!resident) {
-      if (it + 1 < tiles) load(ks + ((it + 1) & 1) * L::kTile, kn, (it + 1) * kTK);
+      if (it + 1 < tiles) load(ks + ((it + 1) & 1) * L::kTile, kn, (it + 1) * TK, TK);
       mma::cp_async_commit();
     }
     if (!resident || it == 0) {   // resident: the K group, not V's
@@ -339,15 +363,15 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     mma::cp_async_wait<0>();
     __syncthreads();
   } else {
-    load(ks, kn, 0);
-    load(vs, vn, 0);
+    load(ks, kn, 0, TK);
+    load(vs, vn, 0, TK);
     mma::cp_async_commit();
   }
   for (int it = 0; it < tiles; ++it) {
     if (!resident) {
       if (it + 1 < tiles) {
-        load(ks + ((it + 1) & 1) * L::kTile, kn, (it + 1) * kTK);
-        load(vs + ((it + 1) & 1) * L::kTile, vn, (it + 1) * kTK);
+        load(ks + ((it + 1) & 1) * L::kTile, kn, (it + 1) * TK, TK);
+        load(vs + ((it + 1) & 1) * L::kTile, vn, (it + 1) * TK, TK);
       }
       mma::cp_async_commit();
       mma::cp_async_wait<1>();
@@ -379,52 +403,65 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     T* orow = o + out_base + static_cast<size_t>(r) * ld_out;
 #pragma unroll
     for (int jd = 0; jd < DH / 8; ++jd) {
-      orow[8 * jd + 2 * t] = from_f<T>(acc[jd][2 * hr]);
-      orow[8 * jd + 2 * t + 1] = from_f<T>(acc[jd][2 * hr + 1]);
+      const int col = 8 * jd + 2 * t;   // dh columns of DH are stored
+      if (col < dh) orow[col] = from_f<T>(acc[jd][2 * hr]);
+      if (col + 1 < dh) orow[col + 1] = from_f<T>(acc[jd][2 * hr + 1]);
     }
   }
 }
 
 template <typename T, int DH, bool kFused>
 cudaError_t launch(const T* q, const T* k, const T* v, T* o, int n, int s, int ld_in,
-                   int ld_out, int heads, cudaStream_t stream) {
-  const int tiles = (s + kTK - 1) / kTK;
-  const int slots = tiles <= kSlots ? tiles : 2;
-  const size_t smem = Layout<T, DH>::smem(slots);
+                   int ld_out, int heads, int dh, cudaStream_t stream) {
+  using L = Layout<T, DH>;
+  const int tiles = (s + L::TK - 1) / L::TK;
+  const int slots = tiles <= L::kSlots ? tiles : 2;
   // the shared-memory limit is raised once per device to what any S needs
   static bool allowed[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64 || !allowed[dev]) {
-    err = allow_smem(attn_kernel<T, DH, kFused>, Layout<T, DH>::smem(kSlots));
+    err = allow_smem(attn_kernel<T, DH, kFused>, L::smem(L::kSlots));
     if (err != cudaSuccess) return err;
     if (dev < 64) allowed[dev] = true;
   }
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DH)));
-  // cp.async moves 16-byte chunks: q, k, v and their row stride must be
-  // aligned (the wrapper copies an input that is not)
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
-      static_cast<size_t>(ld_in) * sizeof(T) % 16 != 0)
-    return cudaErrorMisalignedAddress;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
+  // the largest cp.async chunk (16, 8 or 4 bytes) that divides a head's
+  // row, the row stride and the addresses of q, k and v
+  const uintptr_t bits = static_cast<uintptr_t>(dh) * sizeof(T) |
+                         static_cast<uintptr_t>(ld_in) * sizeof(T) |
+                         reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  const int shift = bits % 16 == 0 ? 0 : bits % 8 == 0 ? 1 : bits % 4 == 0 ? 2 : -1;
+  if (shift < 0) return cudaErrorMisalignedAddress;
   dim3 grid(n * heads, (s + kQB - 1) / kQB);
-  attn_kernel<T, DH, kFused><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, s, ld_in, ld_out, heads, scale, slots);
+  attn_kernel<T, DH, kFused><<<grid, kThreads, L::smem(slots), stream>>>(
+      q, k, v, o, s, ld_in, ld_out, heads, dh, scale, slots, shift);
   return cudaGetLastError();
 }
 
-// head dims of the v3 model: 24 (LViT) and 96 (GViT) at n_feats 24,
-// 16 and 64 at the tests' tiny geometry
+// Every head dim up to kMaxDH, in the smallest instantiated DH >= dh: 24
+// (LViT) and 96 (GViT) at n_feats 24, 32 and 128 at the defaults (n_feats
+// 32), 8 to 256 at the JAX package's other head counts and widths.
 template <typename T, bool kFused>
 cudaError_t dispatch_dh(const T* q, const T* k, const T* v, T* o, int n, int s, int ld_in,
                         int ld_out, int heads, int dh, cudaStream_t stream) {
-  switch (dh) {
-    case 16: return launch<T, 16, kFused>(q, k, v, o, n, s, ld_in, ld_out, heads, stream);
-    case 24: return launch<T, 24, kFused>(q, k, v, o, n, s, ld_in, ld_out, heads, stream);
-    case 64: return launch<T, 64, kFused>(q, k, v, o, n, s, ld_in, ld_out, heads, stream);
-    case 96: return launch<T, 96, kFused>(q, k, v, o, n, s, ld_in, ld_out, heads, stream);
-    default: return cudaErrorInvalidValue;
-  }
+#define CFEN_ATTN_DH(D) \
+  if (dh <= D) return launch<T, D, kFused>(q, k, v, o, n, s, ld_in, ld_out, heads, dh, stream)
+  if (dh <= 0) return cudaErrorInvalidValue;
+  CFEN_ATTN_DH(8);
+  CFEN_ATTN_DH(16);
+  CFEN_ATTN_DH(24);
+  CFEN_ATTN_DH(32);
+  CFEN_ATTN_DH(48);
+  CFEN_ATTN_DH(64);
+  CFEN_ATTN_DH(96);
+  CFEN_ATTN_DH(128);
+  CFEN_ATTN_DH(192);
+  CFEN_ATTN_DH(kMaxDH);
+#undef CFEN_ATTN_DH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace attn

@@ -38,6 +38,9 @@ template <typename T> __device__ __forceinline__ float add_bias(float acc, float
 // cp.async's 16-byte copies need 16-byte aligned global addresses
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// the dynamic shared memory one block may opt into on sm_90 (227 KB)
+constexpr size_t kSmemMax = 232448;
+
 // Opts a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -101,6 +101,29 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2], const void* row
                : "memory");
 }
 
+// Four 8x8 b16 matrices as they are stored: lanes 0-7, 8-15, 16-23, 24-31
+// give the rows of the first to the fourth.  With lane l pointing at row
+// l % 16, column 8 (l / 16) of a 16x16 tile, r is the tile's A fragment of
+// a m16n8k16 product.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Four such matrices transposed: lanes 0-7, 8-15, 16-23, 24-31 give the rows of the
+// first to the fourth; r[0..1] and r[2..3] are then the B fragments of two
+// k16 products when lanes 16-31 point 8 columns past lanes 0-15.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // 16 bytes global -> shared without registers; zero-filled when !valid
 // (src must still be a mapped address)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -108,6 +131,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
                : "memory");
+}
+
+// 16 >> shift bytes (16, 8 or 4) global -> shared without registers;
+// zero-filled when !valid (src must still be a mapped address); both
+// addresses aligned to the chunk
+__device__ __forceinline__ void cp_async_chunk(void* dst, const void* src, bool valid,
+                                               int shift) {
+  if (shift == 0) return cp_async16(dst, src, valid);
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 >> shift : 0;
+  if (shift == 1)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n)
+                 : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

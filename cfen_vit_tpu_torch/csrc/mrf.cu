@@ -18,45 +18,43 @@
 // (550 GFLOP for relu3_1 at batch 4), each backward kernel twice that; the
 // bytes (o, t and O(N P) statistics) are negligible.
 //
-// This is a redesign of the port's first K5 kernels, which formed every
-// cos tile in scalar float32 FMA from shared memory (six shared reads per
-// eight FMAs).  Every cos tile now comes from one routine, `cos_sweep`,
-// on the tensor cores with mma.sync: a block's A rows (o) and B rows (t)
-// stream through a 4-stage cp.async ring in chunks of 64 bytes of C (32
-// bf16 or 16 float32 channels), like a GEMM's k-loop, since a C = 512
-// strip does not fit in shared memory; the ring runs on across tiles, so
-// a tile's epilogue overlaps the next tile's loads.  bf16 inputs take
-// m16n8k16 products with float32 accumulation (the products are exact, as
-// before).  float32 inputs take 3xTF32 (hi*hi + hi*lo + lo*hi of TF32
-// parts, m16n8k8): one TF32 pass keeps 11 bits of each operand, and when
-// o is near t the row min m is small and 1/(m + 1e-5) magnifies cos's
-// error past the statistics' 1e-4 bar; tests/test_torch_port_tf32_split.py
-// shows both.  mma.sync and not wgmma: one routine has to serve the
-// forward's 128-row strips and the backward's 32-row strips, and mma.sync
+// Every cos tile comes from one sequence of tensor-core products,
+// `cos_chunk`: one 64-byte chunk of C (32 bf16 or 16 float32 channels) of
+// mma.sync products, chunk after chunk from c = 0.  bf16 inputs take
+// m16n8k16 products with float32 accumulation (the products are exact).
+// float32 inputs take 3xTF32 (hi*hi + hi*lo + lo*hi of TF32 parts,
+// m16n8k8): one TF32 pass keeps 11 bits of each operand, and when o is
+// near t the row min m is small and 1/(m + 1e-5) magnifies cos's error past
+// the statistics' 1e-4 bar; tests/test_torch_port_tf32_split.py shows both.
+// mma.sync and not wgmma: one routine has to serve the forward's 128-row
+// strips and the backward's 32-row strips from two feeders, and mma.sync
 // reaches the tensor cores from any warp tile without the warpgroup's
 // shared-memory descriptors; wgmma is the next step for the forward.
 //
 // Every kernel forms the same cos bits.  The backward's masks (cos < 1)
 // and its exp term must agree with the forward's m and z: when m is near
 // 0, a one-ulp disagreement is multiplied by 1/(m + 1e-5).  So every
-// kernel calls cos_sweep in one orientation, A = o rows, B = t rows, with
+// kernel calls cos_chunk in one orientation, A = o rows, B = t rows, with
 // the same chunk order and the same products per element, whatever its
 // tile sizes: dt's strip is t, so it forms the [o tile, t strip] tile and
 // transposes it through shared memory.
 //
-// The exponent divides by the row min, so online (rescaled) sums do not
-// apply: m must be final before any of z is summed, and z before any cs.
-// The TPU kernel keeps a whole [Sq, P] f32 strip in its 96 MB of VMEM; a
-// Hopper block has 227 KB of shared memory.  The forward therefore
-// RECOMPUTES the cos tiles in three passes over t (min, then sum, then
-// column max) instead of spilling the strip ([N, P, P] f32, 4.3 GB for
-// relu3_1 at batch 4) to a global scratch buffer.  A forward block owns
-// 128 o rows (8 warps of 32 x 32 in a 128 x 64 tile), and each pass's
-// epilogue works on the accumulator fragments: the row min with its index
-// and the row sum are taken across the 4 lanes of a quad and the 2 warps
-// that share rows; minima compare (value, index) pairs and keep the
-// smaller index on a tie, since the fragment layout visits columns out of
-// order.
+// The forward (`_fw_kernel`).  The exponent divides by the row min, so
+// online (rescaled) sums do not apply: m must be final before any of z is
+// summed, and z before any cs.  The TPU kernel keeps a whole [Sq, P] f32
+// strip in its 96 MB of VMEM; a Hopper block has 227 KB of shared memory.
+// The forward therefore RECOMPUTES the cos tiles in three passes over t
+// (min, then sum, then column max) instead of spilling the strip ([N, P,
+// P] f32, 4.3 GB for relu3_1 at batch 4) to a global scratch buffer.  A
+// forward block owns 128 o rows (8 warps of 32 x 32 in a 128 x 64 tile);
+// its A rows (o) and B rows (t) stream through a 4-stage cp.async ring in
+// 64-byte chunks of C (`cos_sweep`: a C = 512 strip of 128 rows does not
+// fit beside its tiles), and the ring runs on across tiles, so a tile's
+// epilogue overlaps the next tile's loads.  Each pass's epilogue works on
+// the accumulator fragments: the row min with its index and the row sum
+// are taken across the 4 lanes of a quad and the 2 warps that share rows;
+// minima compare (value, index) pairs and keep the smaller index on a tie,
+// since the fragment layout visits columns out of order.
 //
 // Column max across blocks: blocks run in no order, so the TPU's
 // sequential running max over strips does not carry over.  cs >= 0, so
@@ -66,15 +64,41 @@
 // reduces its 128 rows (across the 8 lanes that share a column, then the
 // 4 warps) and issues 64 atomics per tile.
 //
-// The backward kernels keep a strip of 32 rows; their cos tile comes from
-// cos_sweep into shared memory, and their dcos product is unchanged: the
-// [32, 64] dcos tile stays in shared memory and multiplies the 64-row tile
-// held there as float32, scalar FMA, each thread accumulating 4 rows x
-// C/32 columns of do (dt) in registers.  do and dt are written in the
-// input dtype; the glue adds the rank-1 argmin terms in f32
-// (ops/cuda_mrf.py).
+// The backward (`_bwd_do_kernel`, `_bwd_dt_kernel`): per 64-row tile of
+// the other operand, a cos product ([32, 64] over C) and the dcos product
+// (dcos [32, 64] times the tile [64, C]), 2 N P^2 C multiply-adds each.
+// What bounds them on this card is the tensor cores' rate and feeding
+// them: a block's 32-row strip meets every tile of its batch row, so at
+// relu3_1 each block reads 8 MB (bf16) of tiles from L2, 16 GB a kernel,
+// about 3 ms of L2 traffic beside some 10 ms of products.  The design (a
+// redesign of one that staged each tile twice, through the ring and then
+// as a float32 copy, for a scalar-FMA dcos product):
+//   - the block's strip stays in shared memory for its life, in the input
+//     type; each tile comes in whole, once, by cp.async, the next tile's
+//     copy overlapping this tile's products where two tiles fit (all but
+//     float32 C = 512, which stages one at a time; see BwdLayout);
+//   - both products read the staged rows: the cos tile through cos_chunk
+//     (the forward's products, fed from the tile instead of the ring), the
+//     dcos product from the same rows on the tensor cores (dcos_product:
+//     bf16 hi + lo parts of the float32 dcos against the exact bf16 tile,
+//     ldmatrix and ldmatrix.trans; float32 3xTF32), since the plain twin
+//     and the JAX kernel multiply a float32 dcos.  In bf16 the epilogue
+//     splits each dcos element once as it stores it (DcosTile), where the
+//     8 warps that read it as their A operand would split it 8 times;
+//   - 32-row strips, 8 warps each owning C / 8 output columns of all 32
+//     rows (64 float32 accumulators a thread at C = 512).  64-row strips
+//     would halve the L2 traffic but double the accumulators to 128 and
+//     leave one block an SM at every C, where 32 rows allow two at bf16
+//     C = 256 (relu3_1, most of the work), and the double buffer overlaps
+//     the L2 reads with the products.
+// The epilogue between the products is the forward's expressions
+// (cdist, exp_term, the cos < 1 mask) with the hit test for the argmax
+// term; do and dt are written in the input dtype; the glue adds the
+// rank-1 argmin terms in f32 (ops/cuda_mrf.py).
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -87,8 +111,6 @@ using cfen::mma::lds32;
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kR = 32;         // backward strip rows per block
 constexpr int kT = 64;         // rows of the other operand per tile
-constexpr int kRM = kR / 16;   // backward strip rows per thread: ty + 16 i
-constexpr int kTN = kT / 16;   // backward tile rows per thread: tx + 16 j
 constexpr int kFwdRows = 128;  // forward strip rows per block
 constexpr int kStages = 4;     // cp.async ring depth
 constexpr int kRowBytes = 80;  // a ring row: 64 bytes of C and 16 of padding
@@ -106,19 +128,6 @@ __device__ __forceinline__ float exp_term(float cd, float m) {
 // a tie
 __device__ __forceinline__ bool better_min(float a, int ai, float v, int i) {
   return a < v || (a == v && ai < i);
-}
-
-// rows [row0, row0 + rows) of src [P, C] into dst [rows][C + 1] as f32;
-// rows at or past P are zero
-template <typename T, int C>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int row0,
-                                          int rows, int p) {
-  for (int i = threadIdx.x; i < rows * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    float v = 0.f;
-    if (row0 + r < p) v = cfen::to_f(src[static_cast<size_t>(row0 + r) * C + c]);
-    dst[r * (C + 1) + c] = v;
-  }
 }
 
 __host__ __device__ constexpr size_t ring_bytes(int bm, int bn) {
@@ -139,14 +148,72 @@ __device__ __forceinline__ int frag_col(int nj, int e) {
   return (warp / (BM / WM)) * WN + 8 * nj + 2 * (lane % 4) + (e & 1);
 }
 
-// The one routine that forms cos tiles, on the tensor cores.  Tile i is
-// A rows [a_row0 + i a_step, + BM) of a (o, [P, C]) against B rows
-// [b_row0 + i b_step, + BN) of b (t, [P, C]), rows at or past P zero,
-// summed over c = 0..C-1 in chunks of 64 bytes in order; each element's
-// products and their order depend on neither the tile sizes nor its
-// position, so every kernel forms the same bits.  After tile i's product,
-// epi(i, acc) runs with acc[mi][nj][e] at (frag_row, frag_col); all
-// threads call it, so it may synchronise.  The ring runs on across tiles.
+// One 64-byte chunk of C (BK = 64 / sizeof(T) channels) of the cos
+// product: acc[mi][nj] += A rows [16 mi, + 16) times B rows [8 nj, + 8)
+// over the chunk, from as and bs (the chunk's first channel of the warp's
+// first A and B row, row strides lda and ldb in shared memory).  Every
+// cos element any kernel forms is the sum of these products, chunk after
+// chunk from c = 0, so every kernel forms the same bits.
+template <typename T, int MI, int NJ>
+__device__ __forceinline__ void cos_chunk(float (&acc)[MI][NJ][4], const T* as, int lda,
+                                          const T* bs, int ldb) {
+  constexpr int kElt = static_cast<int>(sizeof(T));
+  constexpr int BK = 64 / kElt;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if constexpr (kElt == 2) {
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[MI][4], bf[NJ][2];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const T* pa = as + (16 * mi + g) * lda + kk + 2 * t;
+        af[mi][0] = lds32(pa);
+        af[mi][1] = lds32(pa + 8 * lda);
+        af[mi][2] = lds32(pa + 8);
+        af[mi][3] = lds32(pa + 8 * lda + 8);
+      }
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj) {
+        const T* pb = bs + (8 * nj + g) * ldb + kk + 2 * t;
+        bf[nj][0] = lds32(pb);
+        bf[nj][1] = lds32(pb + 8);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj) cfen::mma::bf16_16816(acc[mi][nj], af[mi], bf[nj]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ah[MI][4], al[MI][4], bh[NJ][2], bl[NJ][2];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const float* pa = as + (16 * mi + g) * lda + kk + t;
+        const float x[4] = {pa[0], pa[8 * lda], pa[4], pa[8 * lda + 4]};
+        cfen::mma::split_n<4>(x, ah[mi], al[mi]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < NJ; ++nj) {
+        const float* pb = bs + (8 * nj + g) * ldb + kk + t;
+        const float x[2] = {pb[0], pb[4]};
+        cfen::mma::split_n<2>(x, bh[nj], bl[nj]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+          cfen::mma::tf32x3_1688(acc[mi][nj], ah[mi], al[mi], bh[nj], bl[nj]);
+    }
+  }
+}
+
+// The forward's cos tiles, fed through a cp.async ring.  Tile i is A rows
+// [a_row0 + i a_step, + BM) of a (o, [P, C]) against B rows [b_row0 + i
+// b_step, + BN) of b (t, [P, C]), rows at or past P zero, summed over c =
+// 0..C-1 by cos_chunk.  After tile i's product, epi(i, acc) runs with
+// acc[mi][nj][e] at (frag_row, frag_col); all threads call it, so it may
+// synchronise.  The ring runs on across tiles.
 template <typename T, int C, int BM, int BN, int WM, int WN, class Epi>
 __device__ __forceinline__ void cos_sweep(T* ring, const T* __restrict__ a, int a_row0,
                                           int a_step, const T* __restrict__ b, int b_row0,
@@ -156,7 +223,7 @@ __device__ __forceinline__ void cos_sweep(T* ring, const T* __restrict__ a, int 
   constexpr int MI = WM / 16, NJ = WN / 8;
   constexpr int kStage = (BM + BN) * LD;
   static_assert((BM / WM) * (BN / WN) * 32 == kThreads, "one warp tile per warp");
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x, warp = tid / 32;
   const int wm = warp % (BM / WM), wn = warp / (BM / WM);
   const int total = tiles * NK;
 
@@ -193,52 +260,7 @@ __device__ __forceinline__ void cos_sweep(T* ring, const T* __restrict__ a, int 
     }
     const T* as = ring + (it % kStages) * kStage + wm * WM * LD;
     const T* bs = ring + (it % kStages) * kStage + (BM + wn * WN) * LD;
-    if constexpr (kElt == 2) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t af[MI][4], bf[NJ][2];
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          const T* pa = as + (16 * mi + g) * LD + kk + 2 * t;
-          af[mi][0] = lds32(pa);
-          af[mi][1] = lds32(pa + 8 * LD);
-          af[mi][2] = lds32(pa + 8);
-          af[mi][3] = lds32(pa + 8 * LD + 8);
-        }
-#pragma unroll
-        for (int nj = 0; nj < NJ; ++nj) {
-          const T* pb = bs + (8 * nj + g) * LD + kk + 2 * t;
-          bf[nj][0] = lds32(pb);
-          bf[nj][1] = lds32(pb + 8);
-        }
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int nj = 0; nj < NJ; ++nj) cfen::mma::bf16_16816(acc[mi][nj], af[mi], bf[nj]);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 8) {
-        uint32_t ah[MI][4], al[MI][4], bh[NJ][2], bl[NJ][2];
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          const float* pa = as + (16 * mi + g) * LD + kk + t;
-          const float x[4] = {pa[0], pa[8 * LD], pa[4], pa[8 * LD + 4]};
-          cfen::mma::split_n<4>(x, ah[mi], al[mi]);
-        }
-#pragma unroll
-        for (int nj = 0; nj < NJ; ++nj) {
-          const float* pb = bs + (8 * nj + g) * LD + kk + t;
-          const float x[2] = {pb[0], pb[4]};
-          cfen::mma::split_n<2>(x, bh[nj], bl[nj]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int nj = 0; nj < NJ; ++nj)
-            cfen::mma::tf32x3_1688(acc[mi][nj], ah[mi], al[mi], bh[nj], bl[nj]);
-      }
-    }
+    cos_chunk<T, MI, NJ>(acc, as, LD, bs, LD);
     issue(it + kStages - 1);   // into the stage every thread finished with
     if (it % NK == NK - 1) epi(it / NK, acc);
   }
@@ -399,146 +421,299 @@ mrf_fwd_kernel(const T* __restrict__ o, const T* __restrict__ t, int p, float* _
   });
 }
 
+// The dcos tile as the dcos product's A operand.  bf16: split once as
+// the epilogue writes it, into hi and lo bf16 tiles that ldmatrix reads
+// (the 8 warps that read it would each split it again); rows of kT + 8
+// elements, 36 words (4 mod 8), for ldmatrix's 8 rows of 16 bytes.
+// float32: one float32 tile, split into TF32 parts as it is read (two
+// pre-split TF32 tiles measured slower: twice the shared-memory reads);
+// rows of 72 words (8 mod 32) for its float2 loads (per half-warp 4 rows
+// x 8 words).  Conflict-free either way.
+template <typename T>
+struct DcosTile {
+  static constexpr bool kSplit = sizeof(T) == 2;
+  using E = typename std::conditional<kSplit, __nv_bfloat16, float>::type;
+  static constexpr int kParts = kSplit ? 2 : 1;   // tiles: hi (and lo)
+  static constexpr int LD = kT + 8;
+  static __device__ __forceinline__ void put(E* d, int row, int col, float x) {
+    if constexpr (kSplit) {
+      const __nv_bfloat16 h = __float2bfloat16(x);
+      d[row * LD + col] = h;
+      d[kR * LD + row * LD + col] = __float2bfloat16(x - __bfloat162float(h));
+    } else {
+      d[row * LD + col] = x;
+    }
+  }
+};
+
+// The backward's shared memory: the strip [kR][LD] and kBufs tiles
+// [kT][LD] in the input type, the dcos tile (DcosTile: bf16 hi and lo
+// [2][kR][kT + 8], or float32 [kR][kT + 8]) and the dm partials [4][kR] in
+// float32.  Rows are padded by 16 bytes to 4 mod 32 words (C a multiple
+// of 128), so the cos fragment loads (8 rows x 4 words), the float32 dcos
+// product's B loads (rows 2t, 2t + 1 x 8 columns) and ldmatrix's 8 rows
+// of 16 bytes each hit 32 distinct banks.  Two tiles where they fit, so
+// that the next tile's cp.async overlaps this tile's products: every case
+// but float32 at C = 512 (66 KB strip + 2 x 132 KB), which stages one
+// tile at a time.
+template <typename T, int C>
+struct BwdLayout {
+  static constexpr int LD = C + 16 / static_cast<int>(sizeof(T));
+  static constexpr size_t kStrip = sizeof(T) * kR * LD;
+  static constexpr size_t kTile = sizeof(T) * kT * LD;
+  static constexpr size_t kRest =
+      sizeof(typename DcosTile<T>::E) * DcosTile<T>::kParts * kR * DcosTile<T>::LD +
+      sizeof(float) * 4 * kR;
+  static constexpr int kBufs = kStrip + 2 * kTile + kRest <= cfen::kSmemMax ? 2 : 1;
+  static constexpr size_t kBytes = kStrip + kBufs * kTile + kRest;
+  // two blocks an SM where two fit in its 228 KB (1 KB each reserved)
+  static constexpr int kMinBlocks = 2 * (kBytes + 1024) <= 233472 ? 2 : 1;
+};
+
+// acc[mi][nj] += D rows [16 mi, + 16) x tb columns [8 nj, + 8) over the
+// tile's kT rows: D the dcos tile d (DcosTile; rows: the strip), tb the
+// staged tile [kT][LD] at the warp's first output column.  bf16: D's hi
+// and lo bf16 parts against the exact bf16 tile, two m16n8k16 products;
+// float32: 3xTF32 on m16n8k8.  So no rounding of dcos is added beyond
+// about 2^-16 (bf16) or 2^-22 of each product.  The float32 k8 step takes
+// tile rows 2t and 2t + 1 for k slots t and t + 4 (D's columns the same),
+// which keeps its B loads off shared bank conflicts.
+template <typename T, int C>
+__device__ __forceinline__ void dcos_product(float (&acc)[2][C / 64][4],
+                                             const typename DcosTile<T>::E* d, const T* tb,
+                                             int lane) {
+  constexpr int LD = BwdLayout<T, C>::LD, LDD = DcosTile<T>::LD, NO = C / 64;
+  const int g = lane / 4, t = lane % 4;
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int kk = 0; kk < kT; kk += 16) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int at = (16 * mi + (lane & 15)) * LDD + kk + 8 * (lane >> 4);
+        cfen::mma::ldmatrix_x4(ah[mi], d + at);
+        cfen::mma::ldmatrix_x4(al[mi], d + kR * LDD + at);
+      }
+      const T* pb = tb + (kk + (lane & 15)) * LD + 8 * (lane >> 4);
+#pragma unroll
+      for (int nj = 0; nj < NO; nj += 2) {
+        uint32_t b[4];
+        cfen::mma::ldmatrix_x4_trans(b, pb + 8 * nj);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          cfen::mma::bf16_16816(acc[mi][nj], al[mi], b);
+          cfen::mma::bf16_16816(acc[mi][nj], ah[mi], b);
+          cfen::mma::bf16_16816(acc[mi][nj + 1], al[mi], b + 2);
+          cfen::mma::bf16_16816(acc[mi][nj + 1], ah[mi], b + 2);
+        }
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int kk = 0; kk < kT; kk += 8) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* pa = d + (16 * mi + g) * LDD + kk + 2 * t;
+        const float2 x0 = *reinterpret_cast<const float2*>(pa);
+        const float2 x1 = *reinterpret_cast<const float2*>(pa + 8 * LDD);
+        const float a[4] = {x0.x, x1.x, x0.y, x1.y};
+        cfen::mma::split_n<4>(a, ah[mi], al[mi]);
+      }
+      const float* pb = tb + (kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int nj = 0; nj < NO; ++nj) {
+        const float b[2] = {pb[8 * nj], pb[LD + 8 * nj]};
+        uint32_t bh[2], bl[2];
+        cfen::mma::split_n<2>(b, bh, bl);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          cfen::mma::tf32x3_1688(acc[mi][nj], ah[mi], al[mi], bh, bl);
+      }
+    }
+  }
+}
+
 // kRowsQ: the strip is o (rows q), tiles are t (rows p): writes do and dm.
 // !kRowsQ: the strip is t (rows p), tiles are o (rows q): writes dt.
 template <typename T, int C, bool kRowsQ>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, BwdLayout<T, C>::kMinBlocks)
 mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
                const float* __restrict__ m, const float* __restrict__ z,
                const float* __restrict__ dz, const long long* __restrict__ qstar,
                const float* __restrict__ dk, T* __restrict__ grad, float* __restrict__ dm_out) {
-  constexpr int LD = C + 1;
-  constexpr int LG = kT + 1;
-  constexpr int kCols = C / 32;          // grad columns per thread: lane + 32 k
+  using L = BwdLayout<T, C>;
+  using D = DcosTile<T>;
+  constexpr int LD = L::LD;
+  constexpr int BK = 64 / static_cast<int>(sizeof(T));
   // the cos tile, A = o rows, B = t rows: [strip, tile] for do, [tile,
-  // strip] for dt
-  constexpr int BM = kRowsQ ? kR : kT, BN = kRowsQ ? kT : kR, WM = 16, WN = 16;
-  constexpr int MI = WM / 16, NJ = WN / 8;
+  // strip] for dt, in 16 x 16 warp tiles
+  constexpr int BM = kRowsQ ? kR : kT, WM = 16, WN = 16, NJ = WN / 8;
+  constexpr int NO = C / 64;   // n8 tiles of a warp's C / 8 output columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  float* b_s = reinterpret_cast<float*>(smem_raw + ring_bytes(BM, BN));  // [kT][LD] tile
-  float* g_s = b_s + kT * LD;            // [kR][LG] dcos (rows: strip)
-  float* c_s = g_s + kR * LG;            // [kR][LG] cos (rows: strip)
+  T* ss = reinterpret_cast<T*>(smem_raw);                          // [kR][LD] strip
+  T* ts = ss + kR * LD;                                            // [kBufs][kT][LD]
+  auto* ds = reinterpret_cast<typename D::E*>(ts + L::kBufs * kT * LD);  // dcos
+  float* red = reinterpret_cast<float*>(ds + D::kParts * kR * D::LD);   // [4][kR] dm
 
   const int n = blockIdx.y, r0 = blockIdx.x * kR;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wm = warp % (BM / WM), wn = warp / (BM / WM);
   const size_t base = static_cast<size_t>(n) * p;
   const T* sn = strip + base * C;
   const T* tl = tiles + base * C;
   const float dkn = dk[n];
+  const int n_tiles = (p + kT - 1) / kT;
 
-  // statistics of the strip's own rows
-  float rm[kRM], rz[kRM], rdz[kRM];
-  long long rq[kRM];
+  // rows [row0, row0 + rows) of src into dst, zero at or past P
+  auto stage = [&](T* dst, const T* src, int row0, int rows) {
+    constexpr int kChunk = 16 / static_cast<int>(sizeof(T)), kPer = C / kChunk;
+    for (int i = tid; i < rows * kPer; i += kThreads) {
+      const int r = i / kPer, c = (i % kPer) * kChunk;
+      const bool ok = row0 + r < p;
+      cp_async16(dst + r * LD + c, src + static_cast<size_t>(ok ? row0 + r : 0) * C + c, ok);
+    }
+  };
+  stage(ss, sn, r0, kR);
+  stage(ts, tl, 0, kT);
+  cfen::mma::cp_async_commit();
+
+  // cos fragment element e of n-tile nj: tile row wm WM + g + 8 (e >> 1),
+  // column wn WN + 8 nj + 2 t + (e & 1).  The strip's statistics stay: do
+  // m, z, dz of its rows (q); dt q* of its columns (p)
+  float sm[2] = {0.f, 0.f}, sz[2] = {1.f, 1.f}, sdz[2] = {0.f, 0.f};
+  long long sq[NJ][2];
 #pragma unroll
-  for (int i = 0; i < kRM; ++i) {
-    const int r = r0 + ty + 16 * i;
-    const bool ok = r < p;
-    if (kRowsQ) {
-      rm[i] = ok ? m[base + r] : 0.f;
-      rz[i] = ok ? z[base + r] : 1.f;
-      rdz[i] = ok ? dz[base + r] : 0.f;
-    } else {
-      rq[i] = ok ? qstar[base + r] : -1;
+  for (int h = 0; h < 2; ++h) {
+    const int q = r0 + wm * WM + g + 8 * h;
+    if (kRowsQ && q < p) {
+      sm[h] = m[base + q];
+      sz[h] = z[base + q];
+      sdz[h] = dz[base + q];
     }
   }
-
-  float acc2[4][kCols];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) acc2[r][k] = 0.f;
-  float dm_acc[kRM] = {};
+    for (int e1 = 0; e1 < 2; ++e1) {
+      const int pc = r0 + wn * WN + 8 * nj + 2 * t + e1;
+      sq[nj][e1] = !kRowsQ && pc < p ? qstar[base + pc] : -1;
+    }
 
-  auto epi = [&](int tile, float (&acc)[MI][NJ][4]) {
-    const int c0 = tile * kT;
+  float acc_o[2][NO][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NO; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_o[mi][nj][e] = 0.f;
+  float dm_acc[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int c0 = j * kT;
+    const T* tb = ts + (L::kBufs == 2 ? (j & 1) : 0) * kT * LD;
+    cfen::mma::cp_async_wait<0>();
+    __syncthreads();   // tile j staged; the last tile's reads of ds and its buffer done
+    if (L::kBufs == 2 && j + 1 < n_tiles) {
+      stage(ts + ((j + 1) & 1) * kT * LD, tl, c0 + kT, kT);
+      cfen::mma::cp_async_commit();
+    }
+    // the tile's statistics: do q* of its columns (p); dt m, z, dz of its
+    // rows (q)
+    float tm[2] = {0.f, 0.f}, tz[2] = {1.f, 1.f}, tdz[2] = {0.f, 0.f};
+    long long tq[NJ][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = c0 + wm * WM + g + 8 * h;
+      if (!kRowsQ && q < p) {
+        tm[h] = m[base + q];
+        tz[h] = z[base + q];
+        tdz[h] = dz[base + q];
+      }
+    }
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int pc = c0 + wn * WN + 8 * nj + 2 * t + e1;
+        tq[nj][e1] = kRowsQ && pc < p ? qstar[base + pc] : -1;
+      }
+
+    // cos = o t^T over C, chunk by chunk as the forward's
+    float acc[1][NJ][4];
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[0][nj][e] = 0.f;
+    const T* as = (kRowsQ ? ss : tb) + wm * WM * LD;
+    const T* bs = (kRowsQ ? tb : ss) + wn * WN * LD;
+#pragma unroll 4
+    for (int k0 = 0; k0 < C; k0 += BK) cos_chunk<T, 1, NJ>(acc, as + k0, LD, bs + k0, LD);
+
+    // dcos with the forward's expressions, into ds with the strip's rows
 #pragma unroll
     for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int rr = frag_row<BM, WM>(0, e), cc = frag_col<BM, WM, WN>(nj, e);
-        if (kRowsQ) c_s[rr * LG + cc] = acc[0][nj][e];
-        else c_s[cc * LG + rr] = acc[0][nj][e];
-      }
-    // statistics of the tile's rows
-    float cm[kTN], cz[kTN], cdz[kTN];
-    long long cq[kTN];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = c0 + tx + 16 * j;
-      const bool ok = c < p;
-      if (kRowsQ) {
-        cq[j] = ok ? qstar[base + c] : -1;
-      } else {
-        cm[j] = ok ? m[base + c] : 0.f;
-        cz[j] = ok ? z[base + c] : 1.f;
-        cdz[j] = ok ? dz[base + c] : 0.f;
-      }
-    }
-    __syncthreads();
-    load_rows<T, C>(b_s, tl, c0, kT, p);
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int r = r0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int c = c0 + tx + 16 * j;
+        const int h = e >> 1, e1 = e & 1;
+        const int rr = wm * WM + g + 8 * h, cc = wn * WN + 8 * nj + 2 * t + e1;
+        const int q = kRowsQ ? r0 + rr : c0 + rr, pc = kRowsQ ? c0 + cc : r0 + cc;
         float dc = 0.f;
-        if (r < p && c < p) {
-          const float mm = kRowsQ ? rm[i] : cm[j];
-          const float zz = kRowsQ ? rz[i] : cz[j];
-          const float dzz = kRowsQ ? rdz[i] : cdz[j];
-          const bool hit = kRowsQ ? (cq[j] == r) : (rq[i] == c);
-          const float cos = c_s[(ty + 16 * i) * LG + tx + 16 * j];
+        if (q < p && pc < p) {
+          const float mm = kRowsQ ? sm[h] : tm[h];
+          const float zz = kRowsQ ? sz[h] : tz[h];
+          const float dzz = kRowsQ ? sdz[h] : tdz[h];
+          const bool hit = (kRowsQ ? tq[nj][e1] : sq[nj][e1]) == q;
+          const float cos = acc[0][nj][e];
           const float cd = cdist(cos);
           const float den = mm + kEps;
           const float beb = exp_term(cd, mm) * ((hit ? __fdiv_rn(dkn, zz) : 0.f) + dzz);
-          if (kRowsQ) dm_acc[i] += 2.f * beb * cd;
+          if (kRowsQ) dm_acc[h] += 2.f * beb * cd;
           dc = cos < 1.f ? __fdiv_rn(beb, den) : 0.f;
         }
-        g_s[(ty + 16 * i) * LG + tx + 16 * j] = dc;
+        if (kRowsQ) D::put(ds, rr, cc, dc);
+        else D::put(ds, cc, rr, dc);
+      }
+    __syncthreads();
+    // grad[strip rows, the warp's columns] += dcos [kR, kT] . tile [kT, C]
+    dcos_product<T, C>(acc_o, ds, tb + warp * (C / 8), lane);
+    if (L::kBufs == 1) {
+      __syncthreads();   // the one buffer is free
+      if (j + 1 < n_tiles) {
+        stage(ts, tl, c0 + kT, kT);
+        cfen::mma::cp_async_commit();
       }
     }
-    __syncthreads();
-    // grad[strip rows] += dcos [kR, kT] @ tile [kT, C]
-#pragma unroll 4
-    for (int jj = 0; jj < kT; ++jj) {
-      float g[4], b[kCols];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) g[r] = g_s[(4 * warp + r) * LG + jj];
-#pragma unroll
-      for (int k = 0; k < kCols; ++k) b[k] = b_s[jj * LD + lane + 32 * k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int k = 0; k < kCols; ++k) acc2[r][k] = fmaf(g[r], b[k], acc2[r][k]);
-    }
-  };
-  const int n_tiles = (p + kT - 1) / kT;
-  if (kRowsQ)
-    cos_sweep<T, C, BM, BN, WM, WN>(ring, sn, r0, 0, tl, 0, kT, p, n_tiles, epi);
-  else
-    cos_sweep<T, C, BM, BN, WM, WN>(ring, tl, 0, kT, sn, r0, 0, p, n_tiles, epi);
+  }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + 4 * warp + r;
-    if (row >= p) continue;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int k = 0; k < kCols; ++k)
-      grad[(base + row) * C + lane + 32 * k] = cfen::from_f<T>(acc2[r][k]);
-  }
-  if (kRowsQ) {
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 16 * mi + g + 8 * h;
+      if (row >= p) continue;
+      T* out = grad + (base + row) * C + warp * (C / 8) + 2 * t;
 #pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      for (int off = 8; off > 0; off >>= 1)
-        dm_acc[i] += __shfl_xor_sync(0xffffffffu, dm_acc[i], off);
-      const int r = r0 + ty + 16 * i;
-      if (tx == 0 && r < p) {
-        const float den = rm[i] + kEps;
-        dm_out[base + r] = __fdiv_rn(dm_acc[i], den * den);
+      for (int nj = 0; nj < NO; ++nj) {
+        out[8 * nj] = cfen::from_f<T>(acc_o[mi][nj][2 * h]);
+        out[8 * nj + 1] = cfen::from_f<T>(acc_o[mi][nj][2 * h + 1]);
       }
+    }
+  if (kRowsQ) {
+    // the 4 lanes of a quad share rows, then the 4 warps along the tile
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = dm_acc[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (t == 0) red[wn * kR + wm * WM + g + 8 * h] = v;
+    }
+    __syncthreads();
+    const int r = r0 + tid;
+    if (tid < kR && r < p) {
+      const float v = red[tid] + red[kR + tid] + red[2 * kR + tid] + red[3 * kR + tid];
+      const float den = m[base + r] + kEps;
+      dm_out[base + r] = __fdiv_rn(v, den * den);
     }
   }
 }
@@ -546,10 +721,6 @@ mrf_bwd_kernel(const T* __restrict__ strip, const T* __restrict__ tiles, int p,
 constexpr size_t fwd_smem() {
   return ring_bytes(kFwdRows, kT) + sizeof(float) * 6 * kFwdRows +
          sizeof(unsigned long long) * (kFwdRows / 32) * kT;
-}
-template <int C>
-constexpr size_t bwd_smem() {
-  return ring_bytes(kR, kT) + sizeof(float) * (kT * (C + 1) + 2 * kR * (kT + 1));
 }
 
 template <typename T, int C>
@@ -573,11 +744,12 @@ template <typename T, int C, bool kRowsQ>
 cudaError_t launch_bwd(const void* strip, const void* tiles, const void* m, const void* z,
                        const void* dz, const void* qstar, const void* dk, void* grad, void* dm,
                        int n, int p, cudaStream_t stream) {
+  constexpr size_t smem = BwdLayout<T, C>::kBytes;
   if (!cfen::aligned16(strip) || !cfen::aligned16(tiles)) return cudaErrorMisalignedAddress;
-  cudaError_t err = cfen::allow_smem(mrf_bwd_kernel<T, C, kRowsQ>, bwd_smem<C>());
+  cudaError_t err = cfen::allow_smem(mrf_bwd_kernel<T, C, kRowsQ>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p + kR - 1) / kR, n);
-  mrf_bwd_kernel<T, C, kRowsQ><<<grid, kThreads, bwd_smem<C>(), stream>>>(
+  mrf_bwd_kernel<T, C, kRowsQ><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(strip), static_cast<const T*>(tiles), p,
       static_cast<const float*>(m), static_cast<const float*>(z), static_cast<const float*>(dz),
       static_cast<const long long*>(qstar), static_cast<const float*>(dk), static_cast<T*>(grad),

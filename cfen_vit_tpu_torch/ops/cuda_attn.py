@@ -12,7 +12,10 @@ version rounds; see the source's header.
 
 `block_attention` runs `attention_core`, the plain version (JAX
 models/vit.py attention_core), for CPU tensors and the kernel for CUDA
-tensors; a CUDA input the kernel does not take raises.  Under autograd the
+tensors; a CUDA input the kernel does not take raises.  `takes(dh, s,
+dtype)` is the shape rule the wrapper, K2's wrapper and the tests share:
+every head dim up to 256 (padded inside the kernel to the next of its
+instantiated widths, with the true dh's scale; even in bf16) and any S.  Under autograd the
 kernel's backward recomputes through `attention_core` and returns its
 vector-Jacobian product (the JAX kernel has no VJP: it is off by default
 there, so this recompute is the port's choice).
@@ -28,8 +31,14 @@ from . import _build
 
 launches = 0          # kernel launches since the last reset
 recomputes = 0        # backward recomputes through attention_core
-HEAD_DIMS = (16, 24, 64, 96)   # the kernel's instantiations (csrc/attn.cuh)
-MAX_SEQ = 1024        # the longest sequence the tests and chip_smoke.py hold it to
+MAX_HEAD_DIM = 256    # csrc/attn.cuh kMaxDH
+
+
+def takes(dh: int, s: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes head dim dh at sequence length s: its
+    cp.async loads move at least 4 bytes, so a bf16 dh must be even."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return 1 <= dh <= MAX_HEAD_DIM and s >= 1 and dh * itemsize % 4 == 0
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,10 +99,11 @@ def _launch(q, k, v, num_heads):
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"block_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)} and v {tuple(v.shape)} differ")
-    if e % num_heads or e // num_heads not in HEAD_DIMS or s > MAX_SEQ:
+    if e % num_heads or not takes(e // num_heads, s, q.dtype):
         raise ValueError(f"block_attention: head dim {e / num_heads} (E {e}, "
-                         f"{num_heads} heads) not in {HEAD_DIMS} or S {s} > "
-                         f"{MAX_SEQ}")
+                         f"{num_heads} heads) at S {s} in {q.dtype}: the "
+                         f"kernel takes head dims 1 to {MAX_HEAD_DIM}, even in "
+                         f"bfloat16 (the others: ROADMAP Queue C)")
     q, k, v = _build.aligned16(q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -13,9 +13,11 @@ row n, for o, t [N, P, C] with cos = o t^T summed in float32:
 
 The kernels are bound by operations (2 N P^2 C multiply-adds for the
 forward, twice that for each backward kernel).  All three form their cos
-tiles with one tensor-core routine (bf16 directly, float32 through a 3xTF32
-split), so the backward's masks agree with the forward's statistics bit for
-bit; see the source's header.
+tiles with one sequence of tensor-core products (bf16 directly, float32
+through a 3xTF32 split), so the backward's masks agree with the forward's
+statistics bit for bit; do and dt run their dcos product on the tensor
+cores too, from the same staged rows (the float32 dcos split into bf16 hi
++ lo, or 3xTF32); see the source's header.
 
 `mrf_core(o_n, t_n)` is what losses/vgg.py calls: a CPU tensor takes
 `mrf_core_plain`, the blocked dense form of the JAX `_mrf`, under

@@ -1,13 +1,13 @@
-"""K4: the stem, head conv5x5 3 -> 12 plus the ResBlock
+"""K4: the stem, head conv5x5 3 -> cm plus the ResBlock
 h + conv3x3(relu(conv3x3(h))), at full resolution (counterpart of
 cfen_vit_tpu/ops/pallas_stem.py).
 
 Replaces the TPU kernel `fused_stem` (pallas_stem.py, kernel `_kstem`)
 with csrc/stem.cu.  On Hopper the plain version is bound by device memory
-(two 12-channel full-resolution intermediates written and reread); the
+(two cm-channel full-resolution intermediates written and reread); the
 kernel keeps h and the relu output in shared memory per tile, zero outside
-the image as the zero-padded convolutions require.  See the source's
-header.
+the image as the zero-padded convolutions require, at any stem width cm
+up to MAX_STEM_WIDTH (`takes`).  See the source's header.
 
 `fused_stem` runs `stem_plain` (JAX models/generator.py _stem_plain) for
 CPU tensors and the kernel for CUDA tensors; a CUDA input the kernel does
@@ -25,10 +25,16 @@ from . import _build
 
 launches = 0          # kernel launches since the last reset
 recomputes = 0        # backward recomputes through stem_plain
+MAX_STEM_WIDTH = 146   # csrc/stem.cu stem_tile: every cm up to it has a tile
+
+
+def takes(cin: int, cm: int) -> bool:
+    """Whether the kernel takes an RGB input into a stem of cm channels."""
+    return cin == 3 and 1 <= cm <= MAX_STEM_WIDTH
 
 
 def stem_plain(x, w5, b5, w1, b1, w2, b2):
-    """x [B,3,H,W] -> [B,12,H,W]; w5 [12,3,5,5], w1/w2 [12,12,3,3]."""
+    """x [B,3,H,W] -> [B,cm,H,W]; w5 [cm,3,5,5], w1/w2 [cm,cm,3,3]."""
     h = F.conv2d(x, w5, b5, padding=2)
     return h + F.conv2d(F.relu(F.conv2d(h, w1, b1, padding=1)), w2, b2,
                         padding=1)
@@ -60,11 +66,11 @@ def _launch(x, w5, b5, w1, b1, w2, b2):
     bsz, cin, h, wd = x.shape
     cm = w5.shape[0]
     shapes = [tuple(t.shape) for t in (w5, b5, w1, b1, w2, b2)]
-    if (cin, cm) != (3, 12) or shapes != [(12, 3, 5, 5), (12,),
-                                          (12, 12, 3, 3), (12,),
-                                          (12, 12, 3, 3), (12,)]:
-        raise ValueError(f"fused_stem: takes x [B,3,H,W] and 12 stem "
-                         f"channels, got x {tuple(x.shape)} and {shapes}")
+    if not takes(cin, cm) or shapes != [(cm, 3, 5, 5), (cm,), (cm, cm, 3, 3),
+                                        (cm,), (cm, cm, 3, 3), (cm,)]:
+        raise ValueError(f"fused_stem: takes x [B,3,H,W] and 1 to "
+                         f"{MAX_STEM_WIDTH} stem channels, got x {tuple(x.shape)} "
+                         f"and {shapes}")
     out = torch.empty((bsz, cm, h, wd), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         rc = _build.library().cfen_stem_fwd(

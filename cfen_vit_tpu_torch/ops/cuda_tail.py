@@ -3,16 +3,17 @@ resolution (counterpart of cfen_vit_tpu/ops/pallas_tail.py).
 
 Replaces the TPU kernel `conv7_tail_epilogue` (pallas_tail.py, kernel
 `_k2cf`) with csrc/tail.cu.  On Hopper it is bound by shared-memory reads
-of the input tile (12 * 49 * out_c FMAs per pixel over a 12-channel map
-read once); the kernel computes the reflect index itself, so no padded
-copy is made.  See the source's header.
+of the input tile (c * 49 * out_c FMAs per pixel over a c-channel map read
+once); the kernel computes the reflect index itself, so no padded copy is
+made, and takes the channels through its tile 16 at a time, so any c fits.
+See the source's header.
 
 `tail_epilogue` runs `tail_plain` (JAX models/generator.py
 _tail_epilogue_plain) for CPU tensors and the kernel for CUDA tensors; a
-CUDA input the kernel does not take raises.  Under autograd the kernel's
-backward recomputes through `tail_plain` and returns its vector-Jacobian
-product, as the JAX package's custom VJP does (generator.py
-_tail_epilogue_bwd).
+CUDA input the kernel does not take raises (`takes` is the shape rule).
+Under autograd the kernel's backward recomputes through `tail_plain` and
+returns its vector-Jacobian product, as the JAX package's custom VJP does
+(generator.py _tail_epilogue_bwd).
 """
 
 from __future__ import annotations
@@ -26,9 +27,15 @@ launches = 0          # kernel launches since the last reset
 recomputes = 0        # backward recomputes through tail_plain
 
 
+def takes(cin: int, out_c: int, h: int, w: int) -> bool:
+    """Whether the kernel takes t2 [B, cin, h, w] into out_c channels: any
+    cin, out_c 1 or 3, and sides the reflect padding by 3 allows."""
+    return cin >= 1 and out_c in (1, 3) and min(h, w) >= 4
+
+
 def tail_plain(t2: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
-    """t2 [B,12,H,W], w [out_c,12,7,7], b [out_c] -> [B,out_c,H,W]."""
+    """t2 [B,C,H,W], w [out_c,C,7,7], b [out_c] -> [B,out_c,H,W]."""
     return torch.tanh(F.conv2d(F.pad(t2, (3, 3, 3, 3), mode="reflect"), w, b))
 
 
@@ -58,10 +65,10 @@ def _launch(t2, w, b):
     _build.check_cuda_inputs("tail_epilogue", t2, w, b)
     bsz, cin, h, wd = t2.shape
     out_c = w.shape[0]
-    if (cin != 12 or tuple(w.shape) != (out_c, 12, 7, 7) or out_c not in (1, 3)
-            or tuple(b.shape) != (out_c,) or min(h, wd) < 4):
-        raise ValueError(f"tail_epilogue: takes t2 [B,12,H,W] with H, W >= 4 "
-                         f"and w [1 or 3,12,7,7], got {tuple(t2.shape)} and "
+    if (tuple(w.shape) != (out_c, cin, 7, 7) or tuple(b.shape) != (out_c,)
+            or not takes(cin, out_c, h, wd)):
+        raise ValueError(f"tail_epilogue: takes t2 [B,C,H,W] with H, W >= 4 "
+                         f"and w [1 or 3,C,7,7], got {tuple(t2.shape)} and "
                          f"{tuple(w.shape)}")
     out = torch.empty((bsz, out_c, h, wd), device=t2.device, dtype=t2.dtype)
     with torch.cuda.device(t2.device):

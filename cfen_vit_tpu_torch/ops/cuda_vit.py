@@ -169,11 +169,12 @@ def _launch(t, weights, num_heads):
         raise ValueError(f"fused_vit_tokens: t {tuple(t.shape)}, weights "
                          f"{', '.join(bad)}")
     # the attention kernel K1 shares (csrc/attn.cuh)
-    heads_ok = e % num_heads == 0 and e // num_heads in cuda_attn.HEAD_DIMS
-    if not heads_ok or s > cuda_attn.MAX_SEQ:
+    if e % num_heads or not cuda_attn.takes(e // num_heads, s, t.dtype):
         raise ValueError(f"fused_vit_tokens: head dim {e / num_heads} (E {e}, "
-                         f"{num_heads} heads) not in {cuda_attn.HEAD_DIMS} or "
-                         f"S {s} > {cuda_attn.MAX_SEQ}")
+                         f"{num_heads} heads) at S {s} in {t.dtype}: the "
+                         f"attention takes head dims 1 to "
+                         f"{cuda_attn.MAX_HEAD_DIM}, even in bfloat16 (the "
+                         f"others: ROADMAP Queue C)")
     out = torch.empty_like(t)
     scratch = torch.empty(n * s * (6 * e + h), device=t.device, dtype=t.dtype)
     ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))

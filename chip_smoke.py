@@ -19,10 +19,13 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      CUDA-event times, the card's bound; K1 also beside
      F.scaled_dot_product_attention, K2 beside the unfused token path it
      replaces; K1 and SDPA also in five interleaved rounds, summed over
-     the six shapes); untimed, K1 at S 1024, a ragged S and head dims 16
-     and 64, and K5 at a ragged P; then MrfCore against the dense mrf_core_plain
-     on value and both grads, and the K1, K2, K3 and K4 autograd
-     Functions' grads against the plain versions' autograd;
+     the six shapes; K5's do and dt per layer and summed, beside the
+     bound of the products their design runs); untimed, K1 at S 1024, 4096
+     and 16384, a ragged S and head dims 12 to 256 (the defaults' 32 and
+     128 among them), K3 and K4 at widths 4, 16 and 32, and K5 at a ragged
+     P; then MrfCore against the dense mrf_core_plain on value and both
+     grads, and the K1, K2, K3 and K4 autograd Functions' grads against the
+     plain versions' autograd;
   4. inference end to end: a seeded full-width v3 model (n_feats 24,
      hidden_dim_ratio 4, patch 32, loadSize 256) with its ActNorms
      initialised on the first batch, saved as 1_net_G.pth, then
@@ -64,7 +67,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      a ModulatedDeformConvPack forward and backward on the card (one
      launch, one recompute, output equal to the Pack on deform_plain) and
      `bench_deform.main(--iters 5)`, whose lines must be finite and whose
-     K6 path must launch.
+     K6 path must launch;
+  8. the JAX package's default flags (n_feats 32, hidden_dim_ratio 6, 4
+     heads; 662,624,215 generator parameters: head dims 32 and 128, a
+     16-channel stem and tails): phase 4's inference CLI run with its
+     gates (2/255 against the plain path, 35 dB bf16), then 2 training
+     steps per dtype through the train CLI, one batch an epoch (finite
+     losses, G and D moved, K1, K3, K4 and K5's three kernels launched and
+     the recomputes run), each with its counts reset before and read after.
 
 Phases 1-5 run with K2 off (CFEN_PALLAS_VIT unset), as by default.
 The last two lines are a JSON object of the kernels' results and
@@ -133,11 +143,19 @@ K2_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -7, 1e-2)}
 K2_GRAD_BAR = 1e-4
 # the ID-MRF layers of a 512x512 batch of 4: relu3_1 and relu4_1
 MRF_SHAPES = ((BATCH, (SIDE // 4) ** 2, 256), (BATCH, (SIDE // 8) ** 2, 512))
-# K1 off the model's shapes, checked untimed: S 1024, a ragged S, head
-# dims 16 and 64 ([N, S, E], heads); K5 at a ragged P
+# K1 off the canonical model's shapes, checked untimed ([N, S, E], heads):
+# S 1024, a ragged S, head dims 16 and 64; the defaults' 32 and 128, the
+# padded 12 (8-byte cp.async chunks in bf16) and 40, 256, and S 4096 and
+# 16384
 K1_EXTRA = (((4, 1024, 384), 4), ((3, 100, 96), 4), ((2, 256, 64), 4),
-            ((2, 256, 256), 4))
+            ((2, 256, 256), 4), ((16, 256, 128), 4), ((4, 256, 512), 4),
+            ((3, 100, 96), 8), ((2, 256, 160), 4), ((2, 64, 512), 2),
+            ((2, 4096, 128), 4), ((1, 16384, 64), 2))
+# K3's input and K4's stem widths checked untimed: n_feats 8, the
+# defaults' 16 and n_feats 64's 32
+WIDTHS_EXTRA = (4, 16, 32)
 MRF_EXTRA = ((2, 1000, 256),)
+MRF_LAYERS = {MRF_SHAPES[0]: "relu3_1", MRF_SHAPES[1]: "relu4_1"}
 # K5 against its twins.  Forward statistics: both sum cos in float32 from
 # the same inputs, in another order (rtol 1e-4); an index may differ only
 # where its value ties the twin's within that tolerance.  do/dt: float32
@@ -184,7 +202,7 @@ def phase_build():
         for line in fh:
             # the kernel's name and the start of its mangled template
             # arguments, e.g. "attn_kernel IfLi24ELb0E" (float, 24, false)
-            named = re.search(r"entry function '[^']*?\d+([a-z_]+_kernel)([^']{0,12})", line)
+            named = re.search(r"entry function '[^']*?\d+([a-z_]+_kernel)([^']{0,24})", line)
             if named:
                 kernel = f"{named.group(1)} {named.group(2)}"
             elif "Used" in line or "spill" in line:
@@ -216,15 +234,24 @@ def bound_ms(flops: float, nbytes: float, dtype: str):
                                        else "bytes")
 
 
-def split_bound(dtype: str, tensor_flops: float, fma_flops: float = 0.0):
+def split_bound(dtype: str, tensor_flops: float):
     """For a float32 kernel whose products run on the tensor cores as
     3xTF32, the least time of that route in ms: three TF32 products at 495
-    TFLOP/s, plus any float32 FMA work at 67; None for other dtypes.  It is
-    logged beside the kernel's times, not written to the kernels line."""
+    TFLOP/s; None for other dtypes.  It is logged beside the kernel's
+    times, not written to the kernels line."""
     if dtype != "float32":
         return None
-    return (3 * tensor_flops / PEAK_TF32
-            + fma_flops / PEAK_FLOPS["float32"]) * 1e3
+    return 3 * tensor_flops / PEAK_TF32 * 1e3
+
+
+def design_bound(dtype: str, cos_flops: float) -> float:
+    """K5 do's or dt's least time in ms for the products its design runs:
+    the cos product and the two-pass (bf16 hi + lo) dcos product, three
+    bf16 passes at 989 TFLOP/s; in float32 both as 3xTF32, six TF32 passes
+    at 495.  Logged only, beside the function's bound."""
+    if dtype == "float32":
+        return 6 * cos_flops / PEAK_TF32 * 1e3
+    return 3 * cos_flops / PEAK_FLOPS["bfloat16"] * 1e3
 
 
 def _log_split_sums(sums):
@@ -283,22 +310,22 @@ def kernel_cases(torch, spec):
             cases.append(("attention", f"{label} [{n},{s},{e}] h{vs.num_heads}",
                           cuda_attn.block_attention, cuda_attn.attention_core,
                           args, 4.0 * n * s * s * e, 4.0 * n * s * e, sdpa))
+    c, px = spec.stem_channels(), BATCH * SIDE * SIDE   # the stem's and tails' width
     for out_c in (3, 1):
-        t2 = torch.relu(randn(BATCH, 12, SIDE, SIDE))
-        args = [t2, randn(out_c, 12, 7, 7, std=(2 / 588) ** 0.5),
+        t2 = torch.relu(randn(BATCH, c, SIDE, SIDE))
+        args = [t2, randn(out_c, c, 7, 7, std=(2 / (49 * c)) ** 0.5),
                 randn(out_c, std=0.1)]
-        px = BATCH * SIDE * SIDE
-        cases.append(("tail", f"[{BATCH},12,{SIDE},{SIDE}] -> {out_c}",
+        cases.append(("tail", f"[{BATCH},{c},{SIDE},{SIDE}] -> {out_c}",
                       cuda_tail.tail_epilogue, cuda_tail.tail_plain, args,
-                      2.0 * px * 12 * 49 * out_c, px * (12 + out_c), None))
+                      2.0 * px * c * 49 * out_c, px * (c + out_c), None))
     x = torch.rand((BATCH, 3, SIDE, SIDE), generator=g, device=dev) * 2 - 1
-    args = [x, randn(12, 3, 5, 5, std=(2 / 75) ** 0.5), randn(12, std=0.1),
-            randn(12, 12, 3, 3, std=(2 / 108) ** 0.5), randn(12, std=0.1),
-            randn(12, 12, 3, 3, std=(2 / 108) ** 0.5), randn(12, std=0.1)]
-    px = BATCH * SIDE * SIDE
-    cases.append(("stem", f"[{BATCH},3,{SIDE},{SIDE}] -> 12",
+    std3 = (2 / (9 * c)) ** 0.5
+    args = [x, randn(c, 3, 5, 5, std=(2 / 75) ** 0.5), randn(c, std=0.1),
+            randn(c, c, 3, 3, std=std3), randn(c, std=0.1),
+            randn(c, c, 3, 3, std=std3), randn(c, std=0.1)]
+    cases.append(("stem", f"[{BATCH},3,{SIDE},{SIDE}] -> {c}",
                   cuda_stem.fused_stem, cuda_stem.stem_plain, args,
-                  2.0 * px * (3 * 25 * 12 + 2 * 12 * 9 * 12), px * 15, None))
+                  2.0 * px * (3 * 25 * c + 2 * c * 9 * c), px * (3 + c), None))
     return cases
 
 
@@ -319,10 +346,36 @@ def _record(results, kernel, dn, err, ms, plain_ms, bound, library_ms=None,
         r[key] = r.get(key, 0.0) + value
 
 
+def _hold(torch, label, wrapper, plain, a, dn, untimed=False):
+    """wrapper(*a) against plain(*a) under TOL, logged; returns (err, ok)."""
+    got = wrapper(*a)
+    torch.cuda.synchronize()
+    ref = plain(*a)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    atol, rtol = TOL[dn]
+    ok = bool(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol))
+    log("kernel", f"{label} {dn}{', untimed' if untimed else ''}: max_abs_err "
+        f"{err:.3g} (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
+    return err, ok
+
+
+def _hold_untimed(torch, cases):
+    """Each (kernel, label, wrapper, plain, args) against its plain version
+    in both dtypes, untimed; returns the failures."""
+    failures = []
+    for kernel, label, wrapper, plain, args in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            a = [t.to(dtype) if isinstance(t, torch.Tensor) else t for t in args]
+            if not _hold(torch, f"{kernel} {label}", wrapper, plain, a, dn, True)[1]:
+                failures.append(f"{kernel} {label} {dn}")
+    return failures
+
+
 def phase_kernels(torch, spec, results):
     """K1, K3, K4 against their plain versions; adds per (kernel, dtype)
     the max error and the summed times and bounds over the shapes."""
-    from cfen_vit_tpu_torch.ops import cuda_attn
     failures, split_sums, k1_cases = [], defaultdict(float), []
     with torch.inference_mode():
         for (kernel, label, wrapper, plain, args, flops, elems,
@@ -331,24 +384,15 @@ def phase_kernels(torch, spec, results):
                 dn = str(dtype).split(".")[-1]
                 a = [t.to(dtype) if isinstance(t, torch.Tensor) else t
                      for t in args]
-                got = wrapper(*a)
-                torch.cuda.synchronize()
-                ref = plain(*a)
-                torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
-                atol, rtol = TOL[dn]
-                ok = bool(torch.allclose(got.float(), ref.float(), atol=atol,
-                                         rtol=rtol))
+                err, ok = _hold(torch, f"{kernel} {label}", wrapper, plain, a, dn)
                 ms = time_ms(torch, lambda: wrapper(*a))
                 plain_ms = time_ms(torch, lambda: plain(*a))
                 lib_ms = library and time_ms(torch, lambda: library(*a))
                 bound = bound_ms(flops, elems * a[0].element_size(), dn)
                 split = split_bound(dn, flops) if kernel == "attention" else None
                 lib = f", library {lib_ms:.4f} ms" if library else ""
-                log("kernel", f"{kernel} {label} {dn}: max_abs_err {err:.3g} "
-                    f"(atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}; "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-                    f"bound {bound[0]:.4f} ms ({bound[1]})"
+                log("kernel", f"{kernel} {label} {dn}: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms{lib}, bound {bound[0]:.4f} ms ({bound[1]})"
                     + (f", 3xTF32 bound {split:.4f} ms" if split else ""))
                 _record(results, kernel, dn, err, ms, plain_ms, bound,
                         lib_ms or None)
@@ -360,26 +404,46 @@ def phase_kernels(torch, spec, results):
                     failures.append(f"{kernel} {label} {dn}")
         _log_split_sums(split_sums)
         _k1_against_sdpa(torch, k1_cases)
-        g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-        for (n, s, e), heads in K1_EXTRA:
-            for dtype in (torch.float32, torch.bfloat16):
-                dn = str(dtype).split(".")[-1]
-                q, k, v = (torch.randn(n, s, e, generator=g, device="cuda").to(dtype)
-                           for _ in range(3))
-                got = cuda_attn.block_attention(q, k, v, heads)
-                torch.cuda.synchronize()
-                ref = cuda_attn.attention_core(q, k, v, heads)
-                err = (got.float() - ref.float()).abs().max().item()
-                atol, rtol = TOL[dn]
-                ok = bool(torch.allclose(got.float(), ref.float(), atol=atol,
-                                         rtol=rtol))
-                log("kernel", f"attention [{n},{s},{e}] h{heads} (dh {e // heads}) "
-                    f"{dn}, untimed: max_abs_err {err:.3g} (atol {atol}, rtol "
-                    f"{rtol}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failures.append(f"attention [{n},{s},{e}] {dn}")
+        failures += _hold_untimed(torch, _k1_extra_cases(torch))
+        failures += _hold_untimed(torch, _width_cases(torch))
     if failures:
         raise AssertionError(f"kernels disagree with plain: {failures}")
+
+
+def _k1_extra_cases(torch):
+    """K1 at the K1_EXTRA shapes, as _hold_untimed takes them."""
+    from cfen_vit_tpu_torch.ops import cuda_attn
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    return [("attention", f"[{n},{s},{e}] h{heads} (dh {e // heads})",
+             cuda_attn.block_attention, cuda_attn.attention_core,
+             [torch.randn(n, s, e, generator=g, device="cuda") for _ in range(3)]
+             + [heads]) for (n, s, e), heads in K1_EXTRA]
+
+
+def _width_cases(torch):
+    """K3 and K4 at the stem and tail widths of other n_feats, at 2 x 128 x
+    200 (ragged against both kernels' tiles), as _hold_untimed takes them."""
+    from cfen_vit_tpu_torch.ops import cuda_stem, cuda_tail
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * std
+    cases = []
+    for c in WIDTHS_EXTRA:
+        x = torch.rand((2, 3, 128, 200), generator=g, device="cuda") * 2 - 1
+        std3 = (2 / (9 * c)) ** 0.5
+        cases.append(("stem", f"[2,3,128,200] -> {c}", cuda_stem.fused_stem,
+                      cuda_stem.stem_plain,
+                      [x, randn(c, 3, 5, 5, std=(2 / 75) ** 0.5), randn(c, std=0.1),
+                       randn(c, c, 3, 3, std=std3), randn(c, std=0.1),
+                       randn(c, c, 3, 3, std=std3), randn(c, std=0.1)]))
+        t2 = torch.relu(randn(2, c, 128, 200))
+        for out_c in (3, 1):
+            cases.append(("tail", f"[2,{c},128,200] -> {out_c}",
+                          cuda_tail.tail_epilogue, cuda_tail.tail_plain,
+                          [t2, randn(out_c, c, 7, 7, std=(2 / (49 * c)) ** 0.5),
+                           randn(out_c, std=0.1)]))
+    return cases
 
 
 def k2_blocks(spec):
@@ -506,6 +570,7 @@ def phase_mrf_kernels(torch, results):
     """K5's three kernels against their twins at the ID-MRF shapes."""
     from cfen_vit_tpu_torch.ops import cuda_mrf as M
     failures, split_sums = [], defaultdict(float)
+    sums = defaultdict(lambda: defaultdict(float))   # (kernel, dtype) -> totals
     with torch.inference_mode():
         for n, p, c in MRF_SHAPES + MRF_EXTRA:
             timed = (n, p, c) in MRF_SHAPES
@@ -531,7 +596,8 @@ def phase_mrf_kernels(torch, results):
                     _record(results, "mrf_fwd", dn, err, ms, plain_ms, bound)
                     if split:
                         split_sums["mrf_fwd"] += split
-                log("kernel", f"mrf_fwd [{n},{p},{c}] {dn}: max_abs_err "
+                layer = MRF_LAYERS.get((n, p, c), "ragged P")
+                log("kernel", f"mrf_fwd {layer} [{n},{p},{c}] {dn}: max_abs_err "
                     f"{err:.3g} (rtol 1e-4, atol 1e-6; {flips} index ties) "
                     f"{'ok' if ok else 'FAIL'}" + (times if timed else ", untimed"))
                 if not ok:
@@ -559,22 +625,25 @@ def phase_mrf_kernels(torch, results):
                         plain_ms = time_ms(torch, lambda: twin(*args), 5, 1)
                         bound = bound_ms(2 * cos_flops,
                                          3 * n * p * c * item + stat_bytes, dn)
-                        # the cos half on the tensor cores, the dcos product
-                        # in float32 FMA
-                        split = split_bound(dn, cos_flops, cos_flops)
+                        design = design_bound(dn, cos_flops)
                         times = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                                 f"bound {bound[0]:.3f} ms ({bound[1]})"
-                                 + (f", 3xTF32 + FFMA bound {split:.3f} ms"
-                                    if split else ""))
+                                 f"bound {bound[0]:.3f} ms ({bound[1]}), design "
+                                 f"bound {design:.3f} ms")
                         _record(results, name, dn, err, ms, plain_ms, bound)
-                        if split:
-                            split_sums[name] += split
-                    log("kernel", f"{name} [{n},{p},{c}] {dn}: max_abs_err "
+                        for key, v in (("ms", ms), ("plain", plain_ms),
+                                       ("bound", bound[0]), ("design", design)):
+                            sums[name, dn][key] += v
+                    log("kernel", f"{name} {layer} [{n},{p},{c}] {dn}: max_abs_err "
                         f"{err:.3g} (rtol {rtol}, atol {frac} x max) "
                         f"{'ok' if ok else 'FAIL'}" + (times if timed else ", untimed"))
                     if not ok:
                         failures.append(f"{name} [{n},{p},{c}] {dn}")
     _log_split_sums(split_sums)
+    for (name, dn), v in sums.items():
+        log("kernel", f"{name} {dn} summed over relu3_1 and relu4_1: kernel "
+            f"{v['ms']:.3f} ms, plain {v['plain']:.3f} ms, bound "
+            f"{v['bound']:.3f} ms, design bound {v['design']:.3f} ms "
+            f"({'six TF32' if dn == 'float32' else 'three bf16'} passes)")
     if failures:
         raise AssertionError(f"K5 kernels disagree with their twins: "
                              f"{failures}")
@@ -735,10 +804,10 @@ def read_png(path: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
-def phase_e2e(torch, spec, tmp):
+def phase_e2e(torch, spec, tmp, tag="e2e"):
     """The inference CLI in float32 and bfloat16 under `tmp` (kept for the
     serve phase); returns the launch counts of each run and the bf16
-    against float32 PSNR of the fake_A PNGs."""
+    against float32 PSNR of the fake_A PNGs.  Its lines carry `tag`."""
     from cfen_vit_tpu_torch import test as cli
     from cfen_vit_tpu_torch.config import parse_args
     from cfen_vit_tpu_torch.models.dehazing_model import DehazingModel
@@ -756,7 +825,7 @@ def phase_e2e(torch, spec, tmp):
     ckpt = os.path.join(tmp, "ckpt", "smoke")
     os.makedirs(ckpt)
     torch.save(net.state_dict(), os.path.join(ckpt, "1_net_G.pth"))
-    log("e2e", f"seeded v3 model, {sum(p.numel() for p in net.parameters())}"
+    log(tag, f"seeded v3 model, {sum(p.numel() for p in net.parameters())}"
         " parameters, ActNorms initialised on batch 0, saved 1_net_G.pth")
     del net
 
@@ -778,7 +847,7 @@ def phase_e2e(torch, spec, tmp):
             mod.launches = 0
         stats = cli.main(argv(dtype))
         launches[dtype] = {k: m.launches for k, m in wrappers.items()}
-        log("e2e", f"{dtype} CLI: {stats['images']} images in "
+        log(tag, f"{dtype} CLI: {stats['images']} images in "
             f"{stats['seconds']:.2f} s, steady "
             f"{stats['steady_img_per_s']:.2f} img/s; kernel launches "
             f"{launches[dtype]}")
@@ -806,7 +875,7 @@ def phase_e2e(torch, spec, tmp):
         t0, reps = time.perf_counter(), 10
         for _ in range(reps):
             model.test()
-        log("e2e", f"{dtype} model.test() on device-resident weights: "
+        log(tag, f"{dtype} model.test() on device-resident weights: "
             f"{reps * BATCH / (time.perf_counter() - t0):.2f} img/s "
             f"(batch {BATCH}, uint8 in/out incl. host copies)")
         if dtype == "float32":
@@ -819,7 +888,7 @@ def phase_e2e(torch, spec, tmp):
                         mod, fn, getattr(mod, plain)))
                 plain_out = model.test()["fake_A"].astype(np.float64)
             diff = np.abs(plain_out - outputs[dtype][:BATCH]).max()
-            log("e2e", f"float32 fake_A, kernels vs plain path: max "
+            log(tag, f"float32 fake_A, kernels vs plain path: max "
                 f"{diff:.0f}/255 (limit 2/255)")
             if diff > 2:
                 raise AssertionError(f"kernel path is {diff}/255 off the "
@@ -827,13 +896,13 @@ def phase_e2e(torch, spec, tmp):
         del model
     mse = np.mean((outputs["bfloat16"] - outputs["float32"]) ** 2)
     psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
-    log("e2e", f"bfloat16 vs float32 fake_A: PSNR {psnr:.2f} dB "
+    log(tag, f"bfloat16 vs float32 fake_A: PSNR {psnr:.2f} dB "
         "(limit 35 dB)")
     if psnr <= 35.0:
         raise AssertionError(f"bfloat16 PSNR {psnr:.2f} dB <= 35 dB")
     per_image = [10 * np.log10(255.0 ** 2 / max(np.mean((b - f) ** 2), 1e-12))
                  for b, f in zip(outputs["bfloat16"], outputs["float32"])]
-    log("e2e", f"bfloat16 vs float32 fake_A, mean of per-image PSNR "
+    log(tag, f"bfloat16 vs float32 fake_A, mean of per-image PSNR "
         f"{np.mean(per_image):.4f} dB (the eval CLI's statistic)")
     return launches, float(np.mean(per_image))
 
@@ -849,9 +918,13 @@ def _counters():
             "stem recomputes": (cuda_stem, "recomputes")}
 
 
-def phase_train(torch, spec):
-    """The GAN training step through its CLI, in float32 and bfloat16; returns
-    the launch counts of each run."""
+def phase_train(torch, spec, images=N_IMAGES, full=True, tag="train"):
+    """The GAN training step through its CLI, in float32 and bfloat16, over
+    2 epochs (--niter 1 --niter_decay 1: the first at half the LR, the
+    second at 0) of `images` images at batch 4; returns the launch counts
+    of each run.  `full`: the checkpoints are saved and checked, and the
+    test CLI reads the trained generator; else nothing is saved (the
+    default flags' 662M-parameter generator)."""
     from cfen_vit_tpu_torch import test as test_cli
     from cfen_vit_tpu_torch.config import parse_args
     from cfen_vit_tpu_torch.train.cli import main as train_main
@@ -872,7 +945,10 @@ def phase_train(torch, spec):
                     "--loadSize", str(spec.load_size), "--sb",
                     "--batchSize", str(BATCH), "--niter", "1",
                     "--niter_decay", "1", "--gpu_ids", "0",
-                    "--print_freq", str(BATCH), "--compute_dtype", dtype]
+                    "--print_freq", str(BATCH), "--compute_dtype", dtype,
+                    "--max_dataset_size", str(images)]
+            if not full:
+                argv += ["--save_epoch_freq", "3"]
             fresh = GanTrainer(parse_args(argv, save_opt=False),
                                torch.device("cuda"))   # the same seeded init
             start = {k: v.clone() for k, v in fresh.g.state_dict().items()}
@@ -891,17 +967,17 @@ def phase_train(torch, spec):
                                for k, (mod, attr) in counters.items()}
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             steps = run["step_seconds"]
-            log("train", f"{dtype}: {len(steps)} steps in {seconds:.2f} s "
+            log(tag, f"{dtype}: {len(steps)} steps in {seconds:.2f} s "
                 f"(run incl. data, checkpoints, LR updates); step seconds "
                 f"{[round(x, 4) for x in steps]}; steady "
                 f"{statistics.mean(steps[1:]):.4f} s/step after step 0; peak "
                 f"device memory {peak:.2f} GiB; launches {launches[dtype]}")
             for i, losses in enumerate(run["losses"]):
-                log("train", f"{dtype} step {i}: " + ", ".join(
+                log(tag, f"{dtype} step {i}: " + ", ".join(
                     f"{k} {v:.5g}" for k, v in losses.items()))
-            if len(steps) != 2 * N_IMAGES // BATCH:
+            if len(steps) != 2 * images // BATCH:
                 raise AssertionError(f"{dtype}: {len(steps)} steps, expected "
-                                     f"{2 * N_IMAGES // BATCH}")
+                                     f"{2 * images // BATCH}")
             bad = [k for losses in run["losses"] for k, v in losses.items()
                    if not np.isfinite(v)]
             if bad:
@@ -916,7 +992,7 @@ def phase_train(torch, spec):
                                    for k in start if k.startswith(net)
                                    and not k.endswith("initialized")])
                      for net in ("D.", "")}
-            log("train", f"{dtype}: share of tensors moved: G and D "
+            log(tag, f"{dtype}: share of tensors moved: G and D "
                 f"{moved['']:.3f}, D {moved['D.']:.3f}")
             if moved["D."] < 0.99 or moved[""] < 0.99:
                 raise AssertionError(f"{dtype}: parameters did not move: {moved}")
@@ -924,6 +1000,10 @@ def phase_train(torch, spec):
             if missing:
                 raise AssertionError(f"{dtype}: never launched or recomputed "
                                      f"on the training path: {missing}")
+            if not full:
+                del run, model, now, start
+                torch.cuda.empty_cache()
+                continue
             files = [f"{e}_net_{n}.pth" for e in ("1", "2", "latest")
                      for n in ("G", "D_A", "D_R", "D_S")]
             files += [f"{e}_train_state.pt" for e in ("1", "2", "latest")]
@@ -947,7 +1027,7 @@ def phase_train(torch, spec):
                 raise AssertionError(f"{dtype}: the trained generator gave "
                                      f"{len(imgs)} fake_A PNGs, expected "
                                      f"{N_IMAGES} non-constant")
-            log("train", f"{dtype}: test CLI read 2_net_G.pth, wrote "
+            log(tag, f"{dtype}: test CLI read 2_net_G.pth, wrote "
                 f"{len(imgs)} fake_A PNGs ({stats['images']} images)")
     return launches
 
@@ -1335,6 +1415,38 @@ def phase_deform(torch, results):
     return launches
 
 
+def phase_defaults(torch, canonical):
+    """Phase 8: the JAX package's default flags (n_feats 32,
+    hidden_dim_ratio 6, 4 heads: LViT head dim 32, GViT 128, a 16-channel
+    stem and tails): K1, K3 and K4 against their plain versions at the
+    shapes this geometry gives them, the inference CLI over phase 4's kind
+    of 8 PNGs with its gates, then 2 training steps per dtype through the
+    train CLI.
+    Returns the launch counts of the inference and the training runs."""
+    spec = replace(canonical, n_feats=32, hidden_dim_ratio=6)
+    shapes = sorted({(v.embedding_dim // v.num_heads, v.seq_length) for v in
+                     [spec.lvit_spec(lvl) for lvl in (1, 2, 3)]
+                     + [spec.gvit_spec(lvl, encoder=False) for lvl in (1, 2, 3)]})
+    log("defaults", f"n_feats {spec.n_feats}, hidden_dim_ratio "
+        f"{spec.hidden_dim_ratio}, {spec.num_heads} heads: (head dim, S) "
+        f"{shapes}, stem and tails {spec.stem_channels()} channels")
+    # K1, K3 and K4 at the shapes this geometry gives them, untimed
+    with torch.inference_mode():
+        failures = _hold_untimed(torch, [c[:5] for c in kernel_cases(torch, spec)])
+    if failures:
+        raise AssertionError(f"kernels disagree with plain at the defaults: "
+                             f"{failures}")
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
+    try:
+        infer, _ = phase_e2e(torch, spec, work, tag="defaults")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    train = phase_train(torch, spec, images=BATCH, full=False, tag="defaults")
+    return infer, train
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1345,6 +1457,7 @@ def main() -> int:
     from cfen_vit_tpu_torch.config import set_precision
     from cfen_vit_tpu_torch.models.registry import generator_spec
 
+    t_start = time.perf_counter()
     spec = replace(generator_spec("iid_hlgvit_crs_gd4_cfs_v3"), n_feats=24,
                    hidden_dim_ratio=4, patch_size=32, load_size=256)
     set_precision("highest")   # float32 plain versions without TF32
@@ -1364,6 +1477,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     deform_launches = phase_deform(torch, results)
+    default_infer, default_train = phase_defaults(torch, spec)
     ported = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "cfen_vit_tpu"
               or m.startswith("cfen_vit_tpu.")]
@@ -1382,7 +1496,10 @@ def main() -> int:
                         "launches": main_path[dtype][kernel],
                         "launches_inference": infer_launches[dtype].get(kernel, 0),
                         "launches_serve": serve_launches[dtype].get(kernel, 0),
+                        "launches_defaults": (default_train[dtype].get(kernel, 0)
+                                              + default_infer[dtype].get(kernel, 0)),
                         **r})
+    log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

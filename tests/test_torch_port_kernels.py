@@ -173,11 +173,13 @@ def test_cuda_attention_matches_plain(cuda, dtype, n, s, e, h):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", cuda_attn.HEAD_DIMS)
-@pytest.mark.parametrize("s", [1, 17, 100, 256, 1024])
+@pytest.mark.parametrize("dh", [6, 8, 12, 16, 24, 32, 40, 48, 64, 96, 128, 192, 256])
+@pytest.mark.parametrize("s", [1, 17, 100, 256, 1024, 4096])
 def test_cuda_attention_every_seq_and_head_dim(cuda, dtype, dh, s):
-    """The tensor-core K1 at every head dim it takes and S from 1 to
-    MAX_SEQ, ragged against its 64-key tiles and 64-query blocks."""
+    """The tensor-core K1 at head dims from 6 to 256 (each instantiated
+    width; 6, 12 and 40 padded inside the kernel, 6 and 12 loaded in 4- and
+    8-byte cp.async chunks in bf16) and S from 1 to 4096, ragged against its
+    key tiles and 64-query blocks, resident and streamed."""
     g = torch.Generator(device=cuda).manual_seed(s + dh)
     q, k, v = (torch.randn(2, s, 4 * dh, generator=g, device=cuda).to(dtype)
                for _ in range(3))
@@ -189,6 +191,26 @@ def test_cuda_attention_every_seq_and_head_dim(cuda, dtype, dh, s):
     assert cuda_attn.launches == before + 1
     atol, rtol = _CUDA_TOL[dtype]
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [5, 7])
+@pytest.mark.parametrize("s", [17, 300])
+def test_cuda_attention_odd_head_dims(cuda, dh, s):
+    """An odd head dim loads in 4-byte cp.async chunks in float32; in bf16
+    no chunk fits a head's row, and the wrapper raises."""
+    g = torch.Generator(device=cuda).manual_seed(s + dh)
+    q, k, v = (torch.randn(2, s, 4 * dh, generator=g, device=cuda) for _ in range(3))
+    before = cuda_attn.launches
+    with torch.inference_mode():
+        got = cuda_attn.block_attention(q, k, v, 4)
+        torch.cuda.synchronize()
+        ref = cuda_attn.attention_core(q, k, v, 4)
+        assert cuda_attn.launches == before + 1
+        atol, rtol = _CUDA_TOL[torch.float32]
+        torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+        with pytest.raises(ValueError, match="head dim"):
+            cuda_attn.block_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), 4)
 
 
 @pytest.mark.cuda
@@ -214,10 +236,14 @@ def test_cuda_attention_takes_inputs_off_16_byte_alignment(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_c,h,w", [(3, 64, 64), (1, 37, 70)])
-def test_cuda_tail_matches_plain(cuda, dtype, out_c, h, w):
+@pytest.mark.parametrize("cin", [12, 4, 16, 32])
+def test_cuda_tail_matches_plain(cuda, dtype, out_c, h, w, cin):
+    """cin 12 at n_feats 24, 16 at the defaults, 4 and 32 at n_feats 8 and
+    64; 32 takes two passes of 16 channels through the tile."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    t2 = torch.randn(2, 12, h, w, generator=g, device=cuda).relu().to(dtype)
-    wt = (torch.randn(out_c, 12, 7, 7, generator=g, device=cuda) * 0.06).to(dtype)
+    t2 = torch.randn(2, cin, h, w, generator=g, device=cuda).relu().to(dtype)
+    wt = (torch.randn(out_c, cin, 7, 7, generator=g, device=cuda)
+          * (2 / (49 * cin)) ** 0.5).to(dtype)
     b = (torch.randn(out_c, generator=g, device=cuda) * 0.1).to(dtype)
     with torch.inference_mode():
         got = cuda_tail.tail_epilogue(t2, wt, b)
@@ -230,11 +256,16 @@ def test_cuda_tail_matches_plain(cuda, dtype, out_c, h, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,w", [(64, 64), (45, 70)])
-def test_cuda_stem_matches_plain(cuda, dtype, h, w):
+@pytest.mark.parametrize("cm", [12, 4, 16, 32, 64, 130, 146])
+def test_cuda_stem_matches_plain(cuda, dtype, h, w, cm):
+    """cm 12 at n_feats 24, 16 at the defaults, 4 and 32 at n_feats 8 and
+    64; 64 and 130 take the kernel's smaller tiles, 130 a ragged group."""
     g = torch.Generator(device=cuda).manual_seed(2)
     x = (torch.rand(2, 3, h, w, generator=g, device=cuda) * 2 - 1).to(dtype)
-    shapes = [(12, 3, 5, 5), (12,), (12, 12, 3, 3), (12,), (12, 12, 3, 3), (12,)]
-    args = [(torch.randn(s, generator=g, device=cuda) * 0.15).to(dtype) for s in shapes]
+    shapes = [(cm, 3, 5, 5), (cm,), (cm, cm, 3, 3), (cm,), (cm, cm, 3, 3), (cm,)]
+    stds = [(2 / 75) ** 0.5, 0.1, (2 / (9 * cm)) ** 0.5, 0.1, (2 / (9 * cm)) ** 0.5, 0.1]
+    args = [(torch.randn(s, generator=g, device=cuda) * std).to(dtype)
+            for s, std in zip(shapes, stds)]
     with torch.inference_mode():
         got = cuda_stem.fused_stem(x, *args)
         torch.cuda.synchronize()
@@ -245,9 +276,9 @@ def test_cuda_stem_matches_plain(cuda, dtype, h, w):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    q = torch.randn(2, 16, 40, device=cuda)
+    q = torch.randn(2, 16, 528, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        cuda_attn.block_attention(q, q, q, 4)            # dh 10
+        cuda_attn.block_attention(q, q, q, 2)            # dh 264 > 256
     with pytest.raises(TypeError):
         cuda_attn.block_attention(q.half(), q.half(), q.half(), 2)
     w = torch.randn(3, 12, 7, 7, device=cuda, requires_grad=True)
@@ -336,7 +367,9 @@ def _k2_block(dev, dtype, n, s, e, heads, seed=5):
 @pytest.mark.parametrize("n,s,e,heads", [(2, 256, 384, 16), (3, 64, 96, 4),
                                          (2, 100, 64, 4),
                                          (8, 256, 96, 4),     # LViT L1, dh 24
-                                         (4, 256, 384, 4)])   # GViT L1, dh 96
+                                         (4, 256, 384, 4),    # GViT L1, dh 96
+                                         (4, 256, 512, 4),    # GViT L1 at the defaults, dh 128
+                                         (2, 64, 384, 32)])   # dh 12, padded
 def test_cuda_fused_vit_matches_twin(cuda, dtype, n, s, e, heads):
     spec, vit, t = _k2_block(cuda, dtype, n, s, e, heads)
     w = vit.fused_weights()
@@ -389,15 +422,15 @@ def test_cuda_fused_vit_rejects_what_it_does_not_take(cuda, monkeypatch):
     spec, vit, t = _k2_block(cuda, torch.float32, 1, 64, 96, 4)
     w = list(vit.fused_weights())
     with pytest.raises(ValueError, match="head dim"):
-        cuda_vit.fused_tokens(t, w, 8)                       # dh 12
+        cuda_vit.fused_tokens(t, w, 5)                       # 5 heads in E 96
     with pytest.raises(TypeError):
         cuda_vit.fused_tokens(t.half(), [x.half() for x in w], 4)
     with pytest.raises(ValueError, match="pos"):
         cuda_vit.fused_tokens(t[:, :32].contiguous(), w, 4)   # S 32 against pos [64, E]
     # a block `supported` admits but the kernel does not take raises on
-    # the switched-on path: E 320 in 32 heads is head dim 10
+    # the switched-on path: E 264 in one head is head dim 264 > 256
     monkeypatch.setenv("CFEN_PALLAS_VIT", "1")
-    spec, vit, t = _k2_block(cuda, torch.float32, 1, 64, 320, 32)
+    spec, vit, t = _k2_block(cuda, torch.float32, 1, 64, 264, 1)
     assert cuda_vit.supported(spec)
     with pytest.raises(ValueError, match="head dim"):
         vit.tokens(t)

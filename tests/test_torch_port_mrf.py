@@ -183,9 +183,50 @@ _GRAD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,p,c", [(2, 300, 128), (1, 1000, 256), (2, 640, 512)])
+@pytest.mark.parametrize("n,p,c", [(2, 300, 128), (1, 1000, 256), (2, 640, 512),
+                                   (4, 16384, 256),     # relu3_1 at 512x512, batch 4
+                                   (4, 4096, 512)])     # relu4_1
 def test_cuda_mrf_kernels_match_twins(cuda, dtype, n, p, c):
     _check_kernels_against_twins(cuda, dtype, *_card_inputs(cuda, dtype, n, p, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [256, 512])
+def test_cuda_mrf_backward_near_ties(cuda, dtype, c):
+    """t equals o on half the rows plus noise of 1e-3 an element, so m is
+    near 0 there and every backward term is divided by m + 1e-5.  Each side
+    runs on its own forward's statistics: where the do and dt kernels form
+    other cos bits than the forward kernel, cd at a row's argmin is no
+    longer m, and the disagreement, magnified by 1/(m + 1e-5), shows
+    against the twins (whose forward and backward agree by construction)."""
+    n, p = 2, 512
+    o, t = (x.float() for x in _card_inputs(cuda, torch.float32, n, p, c, seed=3))
+    g = torch.Generator(device=cuda).manual_seed(4)
+    near = o[:, : p // 2] + 1e-3 * torch.randn(n, p // 2, c, generator=g, device=cuda)
+    t[:, : p // 2] = torch.nn.functional.normalize(near, dim=-1)
+    o, t = o.to(dtype), t.to(dtype)
+    res = []
+    for fwd, do_fn, dt_fn in ((M.mrf_forward_stats, M.mrf_bwd_do, M.mrf_bwd_dt),
+                              (M.mrf_forward_stats_plain, M.mrf_bwd_do_plain,
+                               M.mrf_bwd_dt_plain)):
+        m, z, _, k, qs = fwd(o, t)
+        dk = (-1.0 / (k.mean(dim=1) * p)).contiguous()
+        offs = torch.arange(n, device=cuda)[:, None] * p
+        sum_kq = torch.zeros(n * p, device=cuda).index_add_(
+            0, (qs + offs).reshape(-1), k.reshape(-1)).view(n, p)
+        dz = (-dk[:, None] * sum_kq / z).contiguous()
+        res.append((m, *do_fn(o, t, m, z, dz, qs, dk), dt_fn(o, t, m, z, dz, qs, dk)))
+    torch.cuda.synchronize()
+    # the near ties are near: float32 m about 6e-5 (C 256) to 1.3e-4 (C
+    # 512); bf16 rounding of unit rows moves cos by up to about 1e-3, so
+    # some m fall to 0 (cos >= 1, the mask) and others rise to a few 1e-4
+    m = res[1][0]
+    assert float(m[:, : p // 2].max()) < (2e-4 if dtype == torch.float32 else 1e-3)
+    rtol, frac = _GRAD_TOL[dtype]
+    for name, a, b in zip(("do", "dm", "dt"), res[0][1:], res[1][1:]):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=frac * b.float().abs().max().item(), msg=name)
 
 
 @pytest.mark.cuda
