@@ -38,13 +38,16 @@
 // 96, 128, 192, 256}; a head dim dh <= 256 runs in the smallest DH >= dh,
 // its columns past dh zero in shared memory (they add nothing to Q K^T, and
 // the output's are not stored), with the scale 1/sqrt(dh) of the true dh
-// from the launcher.  Every load is a cp.async, in chunks of 16 bytes, or
-// of 8 or 4 where a head's row, the row stride or the address of q, k or v
-// is not a 16-byte multiple (bf16 dh 6 and 12; K2's packed projection at
-// such an E); the zero fill past S and past dh is cp.async's own.  The
-// launcher refuses what no chunk of 4 bytes divides (an odd bf16 dh; the
-// wrappers' `takes` rejects it first, and the K1 wrapper copies an input
-// that does not start on 16 bytes).
+// from the launcher.  A wider head runs in attn_wide_kernel (below).
+// Every load is a cp.async, in chunks of 16 bytes, or of 8 or 4 where a
+// head's row, the row stride or the address of q, k or v is not a 16-byte
+// multiple (bf16 dh 6 and 12; K2's packed projection at such an E); the
+// zero fill past S and past dh is cp.async's own.  The inputs' heads lie
+// hs >= dh elements apart: an odd bf16 dh, whose rows no chunk of 4 bytes
+// divides, comes as a copy with each head padded by one zero column
+// (hs = dh + 1; the K1 wrapper pads, K2 runs pad_heads), and the
+// launcher refuses what 4 bytes still do not divide.  The K1 wrapper
+// copies an input that does not start on 16 bytes.
 // The softmax must see the final row max and sum before any probability
 // is rounded (the bf16 rounding points above), so the output cannot be
 // rescaled online; instead pass 1 runs QK^T over every tile and keeps the
@@ -76,6 +79,8 @@
 #pragma once
 
 #include <math.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -240,8 +245,8 @@ __device__ __forceinline__ float ex2(float x) {
 template <typename T, int DH, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ o, int s, int ld_in, int ld_out, int heads, int dh, float scale,
-            int slots, int shift) {
+            T* __restrict__ o, int s, int ld_in, int ld_out, int heads, int dh, int hs,
+            float scale, int slots, int shift) {
   using L = Layout<T, DH>;
   constexpr int LD = L::LD, TK = L::TK, kNT = L::kNT;
   constexpr bool kScaleLogits = kFused && sizeof(T) == 2;
@@ -253,7 +258,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
   const int n = blockIdx.x / heads, h = blockIdx.x % heads;
   const int q0 = blockIdx.y * kQB;
-  const size_t in_base = static_cast<size_t>(n) * s * ld_in + static_cast<size_t>(h) * dh;
+  const size_t in_base = static_cast<size_t>(n) * s * ld_in + static_cast<size_t>(h) * hs;
   const size_t out_base = static_cast<size_t>(n) * s * ld_out + static_cast<size_t>(h) * dh;
   const T* kn = k + in_base;
   const T* vn = v + in_base;
@@ -410,46 +415,217 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
-template <typename T, int DH, bool kFused>
-cudaError_t launch(const T* q, const T* k, const T* v, T* o, int n, int s, int ld_in,
-                   int ld_out, int heads, int dh, cudaStream_t stream) {
-  using L = Layout<T, DH>;
-  const int tiles = (s + L::TK - 1) / L::TK;
-  const int slots = tiles <= L::kSlots ? tiles : 2;
-  // the shared-memory limit is raised once per device to what any S needs
-  static bool allowed[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64 || !allowed[dev]) {
-    err = allow_smem(attn_kernel<T, DH, kFused>, L::smem(L::kSlots));
-    if (err != cudaSuccess) return err;
-    if (dev < 64) allowed[dev] = true;
-  }
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
-  // the largest cp.async chunk (16, 8 or 4 bytes) that divides a head's
-  // row, the row stride and the addresses of q, k and v
-  const uintptr_t bits = static_cast<uintptr_t>(dh) * sizeof(T) |
+// the largest cp.async chunk (16, 8 or 4 bytes, as a shift of 16) that
+// divides a head's row stride hs, the row stride and the addresses of q, k
+// and v; -1 if none does
+template <typename T>
+int chunk_shift(const T* q, const T* k, const T* v, int ld_in, int hs) {
+  const uintptr_t bits = static_cast<uintptr_t>(hs) * sizeof(T) |
                          static_cast<uintptr_t>(ld_in) * sizeof(T) |
                          reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v);
-  const int shift = bits % 16 == 0 ? 0 : bits % 8 == 0 ? 1 : bits % 4 == 0 ? 2 : -1;
+  return bits % 16 == 0 ? 0 : bits % 8 == 0 ? 1 : bits % 4 == 0 ? 2 : -1;
+}
+
+template <typename T, int DH, bool kFused>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o, int n, int s, int ld_in,
+                   int ld_out, int heads, int dh, int hs, cudaStream_t stream) {
+  using L = Layout<T, DH>;
+  const int tiles = (s + L::TK - 1) / L::TK;
+  const int slots = tiles <= L::kSlots ? tiles : 2;
+  // the shared-memory limit is raised once per device
+  static bool allowed[64] = {};
+  cudaError_t err = allow_smem_once(attn_kernel<T, DH, kFused>, allowed);
+  if (err != cudaSuccess) return err;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
+  const int shift = chunk_shift(q, k, v, ld_in, hs);
   if (shift < 0) return cudaErrorMisalignedAddress;
   dim3 grid(n * heads, (s + kQB - 1) / kQB);
   attn_kernel<T, DH, kFused><<<grid, kThreads, L::smem(slots), stream>>>(
-      q, k, v, o, s, ld_in, ld_out, heads, dh, scale, slots, shift);
+      q, k, v, o, s, ld_in, ld_out, heads, dh, hs, scale, slots, shift);
   return cudaGetLastError();
 }
 
-// Every head dim up to kMaxDH, in the smallest instantiated DH >= dh: 24
+// Heads wider than kMaxDH.  The head dim goes through shared memory in
+// chunks of kWide columns: for each key tile the block stages the queries'
+// and the keys' chunk and sums the chunk's QK^T into the logits registers,
+// so Q K^T streams the head dim; the output's columns are split into
+// groups of kWide (grid z), each block recomputing the logits for its
+// group's P V.  The two passes, the rounding points and the fragment code
+// (logits_tile, pv_tile at DH kWide) are attn_kernel's; nothing stays
+// resident, and every stage waits for its copies.  No geometry of the
+// model has such a head: this path is for what the JAX package's
+// attention takes (any dh), not for speed.
+constexpr int kWide = 128;
+
+template <typename T, bool kFused>
+__global__ void __launch_bounds__(kThreads)
+attn_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, int s, int ld_in, int ld_out, int heads, int dh, int hs,
+                 float scale, int shift) {
+  using L = Layout<T, kWide>;
+  constexpr int LD = L::LD, TK = L::TK, kNT = L::kNT;
+  constexpr bool kScaleLogits = kFused && sizeof(T) == 2;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kQB][LD] a chunk of the queries
+  T* ks = qs + kQB * LD;                   // [TK][LD] a chunk of a K tile
+  T* vs = ks + L::kTile;                   // [TK][LD] a column group of a V tile
+
+  const int n = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int q0 = blockIdx.y * kQB, col0 = blockIdx.z * kWide;
+  const size_t in_base = static_cast<size_t>(n) * s * ld_in + static_cast<size_t>(h) * hs;
+  const size_t out_base = static_cast<size_t>(n) * s * ld_out + static_cast<size_t>(h) * dh;
+  const T* qn = q + in_base;
+  const T* kn = k + in_base;
+  const T* vn = v + in_base;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int row0 = 16 * warp;
+  const bool active = q0 + row0 < s;
+  const int tiles = (s + TK - 1) / TK;
+
+  // rows [key0, key0 + rows), columns [c0, c0 + kWide) of src into dst;
+  // zeros past s and past dh
+  auto load = [&](T* dst, const T* src, int key0, int rows, int c0) {
+    constexpr int kPer16 = kWide * static_cast<int>(sizeof(T)) / 16;
+    const int per = kPer16 << shift, elems = (16 / static_cast<int>(sizeof(T))) >> shift;
+    for (int i = tid; i < rows * per; i += kThreads) {
+      const int r = (i >> shift) / kPer16, c = (i - r * per) * elems;
+      const bool ok = key0 + r < s && c0 + c < dh;
+      mma::cp_async_chunk(dst + r * LD + c,
+                          ok ? src + static_cast<size_t>(key0 + r) * ld_in + c0 + c : src, ok,
+                          shift);
+    }
+  };
+  // the warp's logits against key tile it, summed over the head dim's
+  // chunks, -inf past s (block-wide: every thread takes part in the loads)
+  auto logits = [&](int it, float sc[kNT][4]) {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += kWide) {
+      __syncthreads();   // the last chunk's reads are done
+      load(qs, qn, q0, kQB, c0);
+      load(ks, kn, it * TK, TK, c0);
+      mma::cp_async_commit();
+      mma::cp_async_wait<0>();
+      __syncthreads();
+      if (active) {
+        float part[kNT][4];
+        logits_tile<T, kWide, !kScaleLogits>(qs, ks, row0, g, t, scale, part);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] += part[j][e];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (it * TK + 8 * j + 2 * t + (e & 1) >= s) sc[j][e] = -INFINITY;
+  };
+  const float c = kScaleLogits ? scale * kLog2e : kLog2e;
+
+  // pass 1: row max and online-rescaled sum of exp, as attn_kernel
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  for (int it = 0; it < tiles; ++it) {
+    float sc[kNT][4];
+    logits(it, sc);
+    if (!active) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) m = fmaxf(m, fmaxf(sc[j][2 * hr], sc[j][2 * hr + 1]));
+      const float mnew = fmaxf(mx[hr], quad_max(m)), mc = mnew * c;
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+        part += ex2(fmaf(sc[j][2 * hr], c, -mc)) + ex2(fmaf(sc[j][2 * hr + 1], c, -mc));
+      sum[hr] = sum[hr] * ex2((mx[hr] - mnew) * c) + part;
+      mx[hr] = mnew;
+    }
+  }
+  float rden[2], mc[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const float total = quad_sum(sum[hr]);
+    rden[hr] = __frcp_rn(kFused ? total : round_to<T>(total));
+    mc[hr] = mx[hr] * c;
+  }
+
+  // pass 2: the same logits, the rounded probabilities and P V for the
+  // block's column group; the V tile's copy joins the logits' first wait
+  float acc[kWide / 8][4];
+#pragma unroll
+  for (int jd = 0; jd < kWide / 8; ++jd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
+  for (int it = 0; it < tiles; ++it) {
+    __syncthreads();   // the last tile's P V reads are done
+    load(vs, vn, it * TK, TK, col0);
+    float p[kNT][4];
+    logits(it, p);
+    if (!active) continue;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        const float ex = ex2(fmaf(p[j][e], c, -mc[hr]));
+        p[j][e] = (kFused ? ex : round_to<T>(ex)) * rden[hr];
+      }
+    pv_tile<T, kWide>(p, vs, lane, g, t, acc);
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = q0 + row0 + g + 8 * hr;
+    if (r >= s) continue;
+    T* orow = o + out_base + static_cast<size_t>(r) * ld_out;
+#pragma unroll
+    for (int jd = 0; jd < kWide / 8; ++jd) {
+      const int col = col0 + 8 * jd + 2 * t;
+      if (col < dh) orow[col] = from_f<T>(acc[jd][2 * hr]);
+      if (col + 1 < dh) orow[col + 1] = from_f<T>(acc[jd][2 * hr + 1]);
+    }
+  }
+}
+
+template <typename T, bool kFused>
+cudaError_t launch_wide(const T* q, const T* k, const T* v, T* o, int n, int s, int ld_in,
+                        int ld_out, int heads, int dh, int hs, cudaStream_t stream) {
+  using L = Layout<T, kWide>;
+  static_assert(L::TK == kQB, "the wide kernel's key tile is its query block");
+  const size_t smem = sizeof(T) * L::LD * (static_cast<size_t>(kQB) + 2 * L::TK);
+  static bool allowed[64] = {};
+  cudaError_t err = allow_smem_once(attn_wide_kernel<T, kFused>, allowed);
+  if (err != cudaSuccess) return err;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
+  const int shift = chunk_shift(q, k, v, ld_in, hs);
+  if (shift < 0) return cudaErrorMisalignedAddress;
+  dim3 grid(n * heads, (s + kQB - 1) / kQB, (dh + kWide - 1) / kWide);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  attn_wide_kernel<T, kFused><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, s, ld_in, ld_out, heads, dh, hs, scale, shift);
+  return cudaGetLastError();
+}
+
+// Every head dim: up to kMaxDH in the smallest instantiated DH >= dh, 24
 // (LViT) and 96 (GViT) at n_feats 24, 32 and 128 at the defaults (n_feats
-// 32), 8 to 256 at the JAX package's other head counts and widths.
+// 32), 8 to 256 at the JAX package's other head counts and widths; wider
+// heads in attn_wide_kernel.  q, k, v hold each row's heads hs >= dh
+// elements apart, ld_in elements a row; o holds them dh apart.
 template <typename T, bool kFused>
 cudaError_t dispatch_dh(const T* q, const T* k, const T* v, T* o, int n, int s, int ld_in,
-                        int ld_out, int heads, int dh, cudaStream_t stream) {
-#define CFEN_ATTN_DH(D) \
-  if (dh <= D) return launch<T, D, kFused>(q, k, v, o, n, s, ld_in, ld_out, heads, dh, stream)
-  if (dh <= 0) return cudaErrorInvalidValue;
+                        int ld_out, int heads, int dh, int hs, cudaStream_t stream) {
+#define CFEN_ATTN_DH(D)                                                                   \
+  if (dh <= D)                                                                            \
+  return launch<T, D, kFused>(q, k, v, o, n, s, ld_in, ld_out, heads, dh, hs, stream)
+  if (dh <= 0 || hs < dh) return cudaErrorInvalidValue;
   CFEN_ATTN_DH(8);
   CFEN_ATTN_DH(16);
   CFEN_ATTN_DH(24);
@@ -461,7 +637,32 @@ cudaError_t dispatch_dh(const T* q, const T* k, const T* v, T* o, int n, int s, 
   CFEN_ATTN_DH(192);
   CFEN_ATTN_DH(kMaxDH);
 #undef CFEN_ATTN_DH
-  return cudaErrorInvalidValue;
+  return launch_wide<T, kFused>(q, k, v, o, n, s, ld_in, ld_out, heads, dh, hs, stream);
+}
+
+// rows x (groups heads of dh) at row stride ld_src -> rows x (groups heads
+// of dh + 1), each head's last column zero: an odd bf16 head dim made
+// even for cp.async's 4-byte chunks (K2's packed projection)
+template <typename T>
+__global__ void pad_heads_kernel(const T* __restrict__ src, T* __restrict__ dst, int rows,
+                                 int ld_src, int groups, int dh) {
+  const int hs = dh + 1, width = groups * hs;
+  const size_t total = static_cast<size_t>(rows) * width;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / width;
+    const int col = static_cast<int>(i - r * width), head = col / hs, j = col - head * hs;
+    dst[i] = j < dh ? src[r * ld_src + static_cast<size_t>(head) * dh + j] : from_f<T>(0.f);
+  }
+}
+
+template <typename T>
+cudaError_t pad_heads(const T* src, T* dst, int rows, int ld_src, int groups, int dh,
+                      cudaStream_t stream) {
+  const size_t total = static_cast<size_t>(rows) * groups * (dh + 1);
+  const int blocks = static_cast<int>(std::min<size_t>((total + 255) / 256, 65535));
+  pad_heads_kernel<T><<<blocks, 256, 0, stream>>>(src, dst, rows, ld_src, groups, dh);
+  return cudaGetLastError();
 }
 
 }  // namespace attn

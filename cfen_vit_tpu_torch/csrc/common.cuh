@@ -49,4 +49,18 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Opts a kernel into all of kSmemMax once per device (the first launch on
+// each device pays the attribute call); `allowed` is the kernel's own flags.
+template <typename K>
+inline cudaError_t allow_smem_once(K kernel, bool (&allowed)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemMax));
+  if (err == cudaSuccess && dev < 64) allowed[dev] = true;
+  return err;
+}
+
 }  // namespace cfen

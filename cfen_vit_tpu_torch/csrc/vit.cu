@@ -174,7 +174,8 @@ cudaError_t linear(const T* a, int lda, const T* w, T* c, int m, int n, int k,
 }
 
 // w: the 17 weights in ops/cuda_vit.py FusedWeights order; scratch holds
-// n*s*(6e + h) elements of T.
+// n*s*(6e + h) elements of T (plus 3 n s (e + heads) at an odd bf16 head
+// dim: the padded q, k and v).
 template <typename T>
 cudaError_t vit_forward(const T* t, const void* const* wp, T* out, T* scratch, int n, int s,
                         int e, int h, int heads, cudaStream_t st) {
@@ -198,8 +199,19 @@ cudaError_t vit_forward(const T* t, const void* const* wp, T* out, T* scratch, i
   }
   CFEN_TRY(linear<T>(t, e, enc_w, t1, m, e, e, st, nullptr, nullptr, enc_b, false, t, pos, s));
   CFEN_TRY(linear<T>(t1, e, in_proj, qkv, m, 3 * e, e, st, ln1g, ln1b));
-  CFEN_TRY((cfen::attn::dispatch_dh<T, true>(qkv, qkv + e, qkv + 2 * e, att, n, s, 3 * e, e,
-                                             heads, e / heads, st)));
+  const int dh = e / heads;
+  if (sizeof(T) == 2 && dh % 2 == 1) {
+    // an odd bf16 head dim: each head of q, k and v padded by one zero
+    // column, so cp.async's 4-byte chunks divide its rows
+    T* qkvp = hid + static_cast<size_t>(m) * h;   // [m, 3 heads (dh + 1)]
+    const int hs = dh + 1, ld = 3 * heads * hs;
+    CFEN_TRY(cfen::attn::pad_heads<T>(qkv, qkvp, m, 3 * e, 3 * heads, dh, st));
+    CFEN_TRY((cfen::attn::dispatch_dh<T, true>(qkvp, qkvp + heads * hs, qkvp + 2 * heads * hs,
+                                               att, n, s, ld, e, heads, dh, hs, st)));
+  } else {
+    CFEN_TRY((cfen::attn::dispatch_dh<T, true>(qkv, qkv + e, qkv + 2 * e, att, n, s, 3 * e, e,
+                                               heads, dh, dh, st)));
+  }
   CFEN_TRY(linear<T>(att, e, wo, src, m, e, e, st, nullptr, nullptr, nullptr, false, t1));
   CFEN_TRY(linear<T>(src, e, l1w, hid, m, h, e, st, ln2g, ln2b, l1b, true));
   CFEN_TRY(linear<T>(hid, h, l2w, t1, m, e, h, st, nullptr, nullptr, l2b, false, src));
@@ -212,7 +224,8 @@ cudaError_t vit_forward(const T* t, const void* const* wp, T* out, T* scratch, i
 }  // namespace
 
 // t, out: contiguous [n, s, e]; w: 17 weight pointers (see vit_forward);
-// scratch: n*s*(6e + h) elements; heads divides e; dtype per cfen::DType.
+// scratch: n*s*(6e + h) elements (plus n*s*3*(e + heads) at an odd bf16
+// head dim); heads divides e; dtype per cfen::DType.
 extern "C" int cfen_vit_fwd(const void* t, const void* const* w, void* out, void* scratch,
                             int n, int s, int e, int h, int heads, int dtype, void* stream) {
   if (n <= 0 || s <= 0 || e <= 0 || h <= 0 || heads <= 0 || e % heads != 0)

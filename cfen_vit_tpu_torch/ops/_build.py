@@ -39,10 +39,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argtypes (pointers, ints, dtype code, stream)
 _SIGNATURES = {
-    "cfen_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cfen_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cfen_tail_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cfen_stem_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _P],
+    # cm, dtype, int[4] out: tile rows, cols, n8 tiles a chunk, smem bytes
+    "cfen_stem_plan": [_I, _I, ctypes.POINTER(_I)],
     "cfen_mrf_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cfen_mrf_bwd_do": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _P],

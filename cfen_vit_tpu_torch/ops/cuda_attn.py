@@ -14,8 +14,11 @@ version rounds; see the source's header.
 models/vit.py attention_core), for CPU tensors and the kernel for CUDA
 tensors; a CUDA input the kernel does not take raises.  `takes(dh, s,
 dtype)` is the shape rule the wrapper, K2's wrapper and the tests share:
-every head dim up to 256 (padded inside the kernel to the next of its
-instantiated widths, with the true dh's scale; even in bf16) and any S.  Under autograd the
+every head dim and any S.  A head dim up to 256 is padded inside the
+kernel to the next of its instantiated widths, a wider one streams
+through shared memory in chunks (both with the true dh's scale); an odd
+bf16 head dim comes to the kernel as a copy with each head padded by a
+zero column, since cp.async moves at least 4 bytes.  Under autograd the
 kernel's backward recomputes through `attention_core` and returns its
 vector-Jacobian product (the JAX kernel has no VJP: it is off by default
 there, so this recompute is the port's choice).
@@ -26,19 +29,24 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 launches = 0          # kernel launches since the last reset
 recomputes = 0        # backward recomputes through attention_core
-MAX_HEAD_DIM = 256    # csrc/attn.cuh kMaxDH
 
 
 def takes(dh: int, s: int, dtype: torch.dtype) -> bool:
-    """Whether the kernel takes head dim dh at sequence length s: its
-    cp.async loads move at least 4 bytes, so a bf16 dh must be even."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return 1 <= dh <= MAX_HEAD_DIM and s >= 1 and dh * itemsize % 4 == 0
+    """Whether the kernel takes head dim dh at sequence length s: any
+    dh >= 1 and s >= 1, in float32 and bfloat16."""
+    return dh >= 1 and s >= 1 and dtype in (torch.float32, torch.bfloat16)
+
+
+def head_stride(dh: int, dtype: torch.dtype) -> int:
+    """The elements between two heads of the kernel's input: dh, or dh + 1
+    for an odd bf16 dh (cp.async's 4-byte chunks must divide a head's row)."""
+    return dh + 1 if dtype == torch.bfloat16 and dh % 2 else dh
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,15 +109,18 @@ def _launch(q, k, v, num_heads):
                          f"{tuple(k.shape)} and v {tuple(v.shape)} differ")
     if e % num_heads or not takes(e // num_heads, s, q.dtype):
         raise ValueError(f"block_attention: head dim {e / num_heads} (E {e}, "
-                         f"{num_heads} heads) at S {s} in {q.dtype}: the "
-                         f"kernel takes head dims 1 to {MAX_HEAD_DIM}, even in "
-                         f"bfloat16 (the others: ROADMAP Queue C)")
-    q, k, v = _build.aligned16(q, k, v)
+                         f"{num_heads} heads) at S {s} in {q.dtype}")
+    dh = e // num_heads
+    hs = head_stride(dh, q.dtype)
     out = torch.empty_like(q)
+    if hs != dh:   # each head padded by one zero column
+        q, k, v = (F.pad(t.view(n, s, num_heads, dh), (0, hs - dh))
+                   .view(n, s, num_heads * hs) for t in (q, k, v))
+    q, k, v = _build.aligned16(q, k, v)
     with torch.cuda.device(q.device):
         rc = _build.library().cfen_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            n, s, e, num_heads, _build.dtype_code(q), _build.stream(q))
+            n, s, e, num_heads, hs, _build.dtype_code(q), _build.stream(q))
     _build.check(rc, "cfen_attn_fwd")
     launches += 1
     return out

@@ -5,9 +5,12 @@ cfen_vit_tpu/ops/pallas_stem.py).
 Replaces the TPU kernel `fused_stem` (pallas_stem.py, kernel `_kstem`)
 with csrc/stem.cu.  On Hopper the plain version is bound by device memory
 (two cm-channel full-resolution intermediates written and reread); the
-kernel keeps h and the relu output in shared memory per tile, zero outside
-the image as the zero-padded convolutions require, at any stem width cm
-up to MAX_STEM_WIDTH (`takes`).  See the source's header.
+kernel keeps h and the relu output channel-last in shared memory per tile,
+zero outside the image as the zero-padded convolutions require, and runs
+the two 3x3 convolutions as implicit GEMMs on the tensor cores (bf16
+directly, float32 as 3xTF32) and the 5x5 head as FFMA summed in the plain
+version's order (so h matches it bit for bit), at any stem width cm up to
+MAX_STEM_WIDTH (`takes`).  See the source's header.
 
 `fused_stem` runs `stem_plain` (JAX models/generator.py _stem_plain) for
 CPU tensors and the kernel for CUDA tensors; a CUDA input the kernel does
@@ -18,6 +21,8 @@ custom VJP does (generator.py _stem_fused_bwd).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -25,12 +30,23 @@ from . import _build
 
 launches = 0          # kernel launches since the last reset
 recomputes = 0        # backward recomputes through stem_plain
-MAX_STEM_WIDTH = 146   # csrc/stem.cu stem_tile: every cm up to it has a tile
+MAX_STEM_WIDTH = 146   # csrc/stem.cu stem_plan: every cm up to it has a tile
 
 
 def takes(cin: int, cm: int) -> bool:
     """Whether the kernel takes an RGB input into a stem of cm channels."""
     return cin == 3 and 1 <= cm <= MAX_STEM_WIDTH
+
+
+def plan(cm: int, dtype: torch.dtype) -> tuple:
+    """The kernel's launch geometry for cm channels (csrc/stem.cu
+    stem_plan, on the card only): (tile rows, tile cols, n8 tiles an N
+    chunk, shared-memory bytes)."""
+    out = (ctypes.c_int * 4)()
+    rc = _build.library().cfen_stem_plan(
+        cm, _build.dtype_code(torch.empty((), dtype=dtype)), out)
+    _build.check(rc, "cfen_stem_plan")
+    return tuple(out)
 
 
 def stem_plain(x, w5, b5, w1, b1, w2, b2):

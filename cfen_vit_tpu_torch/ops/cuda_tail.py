@@ -2,11 +2,12 @@
 resolution (counterpart of cfen_vit_tpu/ops/pallas_tail.py).
 
 Replaces the TPU kernel `conv7_tail_epilogue` (pallas_tail.py, kernel
-`_k2cf`) with csrc/tail.cu.  On Hopper it is bound by shared-memory reads
-of the input tile (c * 49 * out_c FMAs per pixel over a c-channel map read
-once); the kernel computes the reflect index itself, so no padded copy is
-made, and takes the channels through its tile 16 at a time, so any c fits.
-See the source's header.
+`_k2cf`) with csrc/tail.cu.  In bf16 the kernel is an implicit GEMM on the
+tensor cores (output pixels x (tap, channel) x out_c padded to 8), its
+input staged channel-last with the reflect index computed at staging, so
+no padded copy is made; in float32 a register-blocked FFMA loop (the
+count in the source's header chooses it over 3xTF32).  Both take the
+channels in chunks, so any c fits.  See the source's header.
 
 `tail_epilogue` runs `tail_plain` (JAX models/generator.py
 _tail_epilogue_plain) for CPU tensors and the kernel for CUDA tensors; a

@@ -171,12 +171,14 @@ def _launch(t, weights, num_heads):
     # the attention kernel K1 shares (csrc/attn.cuh)
     if e % num_heads or not cuda_attn.takes(e // num_heads, s, t.dtype):
         raise ValueError(f"fused_vit_tokens: head dim {e / num_heads} (E {e}, "
-                         f"{num_heads} heads) at S {s} in {t.dtype}: the "
-                         f"attention takes head dims 1 to "
-                         f"{cuda_attn.MAX_HEAD_DIM}, even in bfloat16 (the "
-                         f"others: ROADMAP Queue C)")
+                         f"{num_heads} heads) at S {s} in {t.dtype}")
     out = torch.empty_like(t)
-    scratch = torch.empty(n * s * (6 * e + h), device=t.device, dtype=t.dtype)
+    dh = e // num_heads
+    hs = cuda_attn.head_stride(dh, t.dtype)
+    # the intermediates, and at an odd bf16 head dim the padded q, k, v
+    padded = 3 * num_heads * hs if hs != dh else 0
+    scratch = torch.empty(n * s * (6 * e + h + padded), device=t.device,
+                          dtype=t.dtype)
     ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
     with torch.cuda.device(t.device):
         rc = _build.library().cfen_vit_fwd(

@@ -145,12 +145,14 @@ K2_GRAD_BAR = 1e-4
 MRF_SHAPES = ((BATCH, (SIDE // 4) ** 2, 256), (BATCH, (SIDE // 8) ** 2, 512))
 # K1 off the canonical model's shapes, checked untimed ([N, S, E], heads):
 # S 1024, a ragged S, head dims 16 and 64; the defaults' 32 and 128, the
-# padded 12 (8-byte cp.async chunks in bf16) and 40, 256, and S 4096 and
-# 16384
+# padded 12 (8-byte cp.async chunks in bf16) and 40, 256, S 4096 and
+# 16384; the wide heads 320 and 512 and the odd 5 and 33 (padded to even
+# in bf16)
 K1_EXTRA = (((4, 1024, 384), 4), ((3, 100, 96), 4), ((2, 256, 64), 4),
             ((2, 256, 256), 4), ((16, 256, 128), 4), ((4, 256, 512), 4),
             ((3, 100, 96), 8), ((2, 256, 160), 4), ((2, 64, 512), 2),
-            ((2, 4096, 128), 4), ((1, 16384, 64), 2))
+            ((2, 4096, 128), 4), ((1, 16384, 64), 2), ((2, 100, 640), 2),
+            ((2, 300, 1024), 2), ((2, 100, 20), 4), ((2, 256, 132), 4))
 # K3's input and K4's stem widths checked untimed: n_feats 8, the
 # defaults' 16 and n_feats 64's 32
 WIDTHS_EXTRA = (4, 16, 32)
@@ -167,6 +169,10 @@ MRF_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 1e-2)}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12   # dense TF32 tensor cores
+# kernels whose device time phase 3 also reads from the profiler (a short
+# kernel's CUDA-event time is set by the host's launch path): the part of
+# the kernel's name it matches
+CONV_KERNEL_NAMES = {"tail": "tail_", "stem": "stem_kernel"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -252,6 +258,43 @@ def design_bound(dtype: str, cos_flops: float) -> float:
     if dtype == "float32":
         return 6 * cos_flops / PEAK_TF32 * 1e3
     return 3 * cos_flops / PEAK_FLOPS["bfloat16"] * 1e3
+
+
+def tail_design_ms(dtype: str, n: int, c: int, h: int, w: int, out_c: int) -> float:
+    """K3's least time in ms for the products its design runs, every tile
+    whole: bf16, 16 x 32 tiles of 49 taps x c rounded up to 16 x 8 padded
+    out channels at 989 TFLOP/s; float32, FFMA over 32 x 32 tiles of 49 c
+    out_c at 67 (csrc/tail.cu).  Logged beside the function's bound."""
+    if dtype == "bfloat16":
+        px = n * -(-h // 16) * 16 * -(-w // 32) * 32
+        return 2.0 * px * 49 * -(-c // 16) * 16 * 8 / PEAK_FLOPS[dtype] * 1e3
+    px = n * -(-h // 32) * 32 * -(-w // 32) * 32
+    return 2.0 * px * 49 * c * out_c / PEAK_FLOPS[dtype] * 1e3
+
+
+def stem_design_ms(torch, dtype: str, n: int, cm: int, h: int, w: int) -> float:
+    """K4's least time in ms for the work its design runs at the kernel's
+    own plan (`cuda_stem.plan`), halos included: per tile the head conv's
+    75 FFMAs a channel (cm rounded up to 4) and position of h's region
+    (tile plus halo 2) at 67 TFLOP/s, then, N in whole chunks of 8 NT, the
+    two 3x3 convs over r1's region (plus halo 1) and the tile in whole
+    16-row strips, K 9 cpad, on the tensor cores: bf16 at 989 TFLOP/s,
+    float32 as three TF32 passes at 495 (csrc/stem.cu)."""
+    from cfen_vit_tpu_torch.ops import cuda_stem
+    th, tw, nt, _ = cuda_stem.plan(cm, getattr(torch, dtype))
+    kstep = 16 if dtype == "bfloat16" else 8
+    cpad, nc = -(-cm // kstep) * kstep, -(-cm // (8 * nt)) * 8 * nt
+    tiles = n * -(-h // th) * -(-w // tw)
+
+    def strips(rows, cols):
+        return -(-(rows * cols) // 16) * 16
+    # the head skips a chunk's channels past cm four at a time
+    head_n = sum(min(8 * nt, -(-(cm - n0) // 4) * 4) for n0 in range(0, cm, 8 * nt))
+    head = tiles * (th + 4) * (tw + 4) * 75 * head_n * 2.0 / PEAK_FLOPS["float32"]
+    macs = tiles * (strips(th + 2, tw + 2) + strips(th, tw)) * 9 * cpad * nc
+    if dtype == "bfloat16":
+        return (head + 2.0 * macs / PEAK_FLOPS[dtype]) * 1e3
+    return (head + 3 * 2.0 * macs / PEAK_TF32) * 1e3
 
 
 def _log_split_sums(sums):
@@ -376,7 +419,9 @@ def _hold_untimed(torch, cases):
 def phase_kernels(torch, spec, results):
     """K1, K3, K4 against their plain versions; adds per (kernel, dtype)
     the max error and the summed times and bounds over the shapes."""
+    from cfen_vit_tpu_torch.bench_conv import device_ms
     failures, split_sums, k1_cases = [], defaultdict(float), []
+    design_sums = defaultdict(float)
     with torch.inference_mode():
         for (kernel, label, wrapper, plain, args, flops, elems,
              library) in kernel_cases(torch, spec):
@@ -390,10 +435,17 @@ def phase_kernels(torch, spec, results):
                 lib_ms = library and time_ms(torch, lambda: library(*a))
                 bound = bound_ms(flops, elems * a[0].element_size(), dn)
                 split = split_bound(dn, flops) if kernel == "attention" else None
+                design = _conv_design_ms(torch, kernel, dn, a)
+                dev = (device_ms(lambda: wrapper(*a), CONV_KERNEL_NAMES[kernel])
+                       if kernel in CONV_KERNEL_NAMES else None)
                 lib = f", library {lib_ms:.4f} ms" if library else ""
                 log("kernel", f"{kernel} {label} {dn}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms{lib}, bound {bound[0]:.4f} ms ({bound[1]})"
-                    + (f", 3xTF32 bound {split:.4f} ms" if split else ""))
+                    + (f", 3xTF32 bound {split:.4f} ms" if split else "")
+                    + (f", design bound {design:.4f} ms" if design else "")
+                    + (f", device {dev:.4f} ms (profiler)" if dev else ""))
+                if design:
+                    design_sums[(kernel, dn)] += design
                 _record(results, kernel, dn, err, ms, plain_ms, bound,
                         lib_ms or None)
                 if split:
@@ -403,11 +455,25 @@ def phase_kernels(torch, spec, results):
                 if not ok:
                     failures.append(f"{kernel} {label} {dn}")
         _log_split_sums(split_sums)
+        for (kernel, dn), v in design_sums.items():
+            log("kernel", f"{kernel} {dn}: design bound summed over the timed "
+                f"shapes {v:.4f} ms")
         _k1_against_sdpa(torch, k1_cases)
         failures += _hold_untimed(torch, _k1_extra_cases(torch))
         failures += _hold_untimed(torch, _width_cases(torch))
     if failures:
         raise AssertionError(f"kernels disagree with plain: {failures}")
+
+
+def _conv_design_ms(torch, kernel, dn, a):
+    """K3's or K4's design bound for the arguments a; None for others."""
+    if kernel == "tail":
+        n, c, h, w = a[0].shape
+        return tail_design_ms(dn, n, c, h, w, a[1].shape[0])
+    if kernel == "stem":
+        n, _, h, w = a[0].shape
+        return stem_design_ms(torch, dn, n, a[1].shape[0], h, w)
+    return None
 
 
 def _k1_extra_cases(torch):

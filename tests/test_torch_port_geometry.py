@@ -67,16 +67,24 @@ def test_attention_takes_every_head_dim_at_long_sequences(dh):
             assert cuda_attn.takes(dh, s, dtype), (dh, s, dtype)
 
 
+def test_attention_takes_every_head_dim_in_both_dtypes():
+    """K1 (and K2's attention) take every head dim: up to 256 in the
+    instantiated widths, wider ones streamed in chunks, an odd bf16 one
+    as a copy padded to even (whose head stride is then dh + 1)."""
+    for dh in range(1, 513):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert cuda_attn.takes(dh, 256, dtype), (dh, dtype)
+            assert cuda_attn.takes(dh, 1, dtype), (dh, dtype)
+        assert cuda_attn.head_stride(dh, torch.float32) == dh
+        assert cuda_attn.head_stride(dh, torch.bfloat16) == dh + dh % 2
+
+
 def test_what_still_raises_is_named():
-    """Above head dim 256 K1 (and K2's attention) still raises, and at an
-    odd head dim in bf16 (ROADMAP Queue C); K3 takes out_c 1 or 3 only."""
+    """K1 refuses an empty head or sequence; K3 takes out_c 1 or 3 only,
+    K4 an RGB input into 1 to MAX_STEM_WIDTH channels."""
     for dtype in (torch.float32, torch.bfloat16):
-        assert not cuda_attn.takes(cuda_attn.MAX_HEAD_DIM + 1, 256, dtype)
         assert not cuda_attn.takes(0, 256, dtype)
-    # an odd bf16 head dim (which no v3 geometry gives) leaves a head's row
-    # off cp.async's smallest chunk of 4 bytes; float32 takes it
-    assert not cuda_attn.takes(5, 256, torch.bfloat16)
-    assert cuda_attn.takes(5, 256, torch.float32)
+        assert not cuda_attn.takes(64, 0, dtype)
     assert not cuda_tail.takes(16, 2, 512, 512)
     assert not cuda_stem.takes(4, 16)
     assert [cm for cm in range(1, 147) if not cuda_stem.takes(3, cm)] == []

@@ -198,19 +198,46 @@ def test_cuda_attention_every_seq_and_head_dim(cuda, dtype, dh, s):
 @pytest.mark.parametrize("s", [17, 300])
 def test_cuda_attention_odd_head_dims(cuda, dh, s):
     """An odd head dim loads in 4-byte cp.async chunks in float32; in bf16
-    no chunk fits a head's row, and the wrapper raises."""
+    no chunk fits a head's row, so the wrapper pads each head to dh + 1
+    and the kernel scales by the true dh."""
     g = torch.Generator(device=cuda).manual_seed(s + dh)
     q, k, v = (torch.randn(2, s, 4 * dh, generator=g, device=cuda) for _ in range(3))
+    for dtype in (torch.float32, torch.bfloat16):
+        a = [t.to(dtype) for t in (q, k, v)]
+        before = cuda_attn.launches
+        with torch.inference_mode():
+            got = cuda_attn.block_attention(*a, 4)
+            torch.cuda.synchronize()
+            ref = cuda_attn.attention_core(*a, 4)
+        assert cuda_attn.launches == before + 1
+        atol, rtol = _CUDA_TOL[dtype]
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 257), (torch.bfloat16, 257),
+                                      (torch.float32, 320), (torch.bfloat16, 320),
+                                      (torch.float32, 512), (torch.bfloat16, 512),
+                                      (torch.bfloat16, 5), (torch.bfloat16, 33),
+                                      (torch.bfloat16, 127)])
+@pytest.mark.parametrize("s", [17, 100, 300])
+def test_cuda_attention_wide_and_odd_bf16_head_dims(cuda, dtype, dh, s):
+    """Head dims above 256 (the head dim streamed in 128-column chunks,
+    the output columns split across blocks; 257 odd, padded in bf16) and
+    odd bf16 head dims (each head padded by one zero column), at S ragged
+    against the key tiles and query blocks."""
+    g = torch.Generator(device=cuda).manual_seed(s + dh)
+    heads = 2
+    q, k, v = (torch.randn(2, s, heads * dh, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
     before = cuda_attn.launches
     with torch.inference_mode():
-        got = cuda_attn.block_attention(q, k, v, 4)
+        got = cuda_attn.block_attention(q, k, v, heads)
         torch.cuda.synchronize()
-        ref = cuda_attn.attention_core(q, k, v, 4)
-        assert cuda_attn.launches == before + 1
-        atol, rtol = _CUDA_TOL[torch.float32]
-        torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
-        with pytest.raises(ValueError, match="head dim"):
-            cuda_attn.block_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), 4)
+        ref = cuda_attn.attention_core(q, k, v, heads)
+    assert cuda_attn.launches == before + 1
+    atol, rtol = _CUDA_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -233,52 +260,98 @@ def test_cuda_attention_takes_inputs_off_16_byte_alignment(cuda, dtype):
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+def _misaligned(t):
+    """A contiguous copy of t whose data starts one element (2 bytes in
+    bf16, 4 in float32) past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, device=t.device, dtype=t.dtype)
+    off = (16 - flat.data_ptr() % 16) % 16 // t.element_size() + 1
+    view = flat[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == t.element_size() and view.is_contiguous()
+    return view
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("out_c,h,w", [(3, 64, 64), (1, 37, 70)])
-@pytest.mark.parametrize("cin", [12, 4, 16, 32])
-def test_cuda_tail_matches_plain(cuda, dtype, out_c, h, w, cin):
-    """cin 12 at n_feats 24, 16 at the defaults, 4 and 32 at n_feats 8 and
-    64; 32 takes two passes of 16 channels through the tile."""
+@pytest.mark.parametrize("out_c,h,w,n", [(3, 64, 64, 2), (1, 37, 70, 2), (3, 37, 53, 1),
+                                         (1, 37, 53, 4)])
+@pytest.mark.parametrize("cin", [12, 1, 3, 4, 16, 24, 32, 33])
+def test_cuda_tail_matches_plain(cuda, dtype, out_c, h, w, n, cin):
+    """cin 12 at n_feats 24, 16 at the defaults, 24 at the full-resolution
+    trunk, 4 and 32 at n_feats 8 and 64; 24, 32 and 33 take two or three
+    chunks of channels (bf16: 16 a chunk, float32: 8), 33 and 37 x 53 are
+    ragged against the chunks and the tiles."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    t2 = torch.randn(2, cin, h, w, generator=g, device=cuda).relu().to(dtype)
+    t2 = torch.randn(n, cin, h, w, generator=g, device=cuda).relu().to(dtype)
     wt = (torch.randn(out_c, cin, 7, 7, generator=g, device=cuda)
           * (2 / (49 * cin)) ** 0.5).to(dtype)
     b = (torch.randn(out_c, generator=g, device=cuda) * 0.1).to(dtype)
+    before = cuda_tail.launches
     with torch.inference_mode():
         got = cuda_tail.tail_epilogue(t2, wt, b)
         torch.cuda.synchronize()
         ref = cuda_tail.tail_plain(t2, wt, b)
+    assert cuda_tail.launches == before + 1
+    atol, rtol = _CUDA_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def _stem_args(dev, dtype, n, h, w, cm, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.rand(n, 3, h, w, generator=g, device=dev) * 2 - 1).to(dtype)
+    shapes = [(cm, 3, 5, 5), (cm,), (cm, cm, 3, 3), (cm,), (cm, cm, 3, 3), (cm,)]
+    stds = [(2 / 75) ** 0.5, 0.1, (2 / (9 * cm)) ** 0.5, 0.1, (2 / (9 * cm)) ** 0.5, 0.1]
+    return [x] + [(torch.randn(s, generator=g, device=dev) * std).to(dtype)
+                  for s, std in zip(shapes, stds)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,n", [(64, 64, 2), (45, 70, 2), (37, 53, 1), (37, 53, 4)])
+@pytest.mark.parametrize("cm", [12, 1, 4, 16, 24, 32, 64, 130, 146])
+def test_cuda_stem_matches_plain(cuda, dtype, h, w, n, cm):
+    """cm 12 at n_feats 24, 16 at the defaults, 4 and 32 at n_feats 8 and
+    64; 1 and 24 ragged against the N chunks, 64, 130 and 146 take the
+    kernel's smaller tiles and several N chunks."""
+    args = _stem_args(cuda, dtype, n, h, w, cm)
+    before = cuda_stem.launches
+    with torch.inference_mode():
+        got = cuda_stem.fused_stem(*args)
+        torch.cuda.synchronize()
+        ref = cuda_stem.stem_plain(*args)
+    assert cuda_stem.launches == before + 1
     atol, rtol = _CUDA_TOL[dtype]
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w", [(64, 64), (45, 70)])
-@pytest.mark.parametrize("cm", [12, 4, 16, 32, 64, 130, 146])
-def test_cuda_stem_matches_plain(cuda, dtype, h, w, cm):
-    """cm 12 at n_feats 24, 16 at the defaults, 4 and 32 at n_feats 8 and
-    64; 64 and 130 take the kernel's smaller tiles, 130 a ragged group."""
-    g = torch.Generator(device=cuda).manual_seed(2)
-    x = (torch.rand(2, 3, h, w, generator=g, device=cuda) * 2 - 1).to(dtype)
-    shapes = [(cm, 3, 5, 5), (cm,), (cm, cm, 3, 3), (cm,), (cm, cm, 3, 3), (cm,)]
-    stds = [(2 / 75) ** 0.5, 0.1, (2 / (9 * cm)) ** 0.5, 0.1, (2 / (9 * cm)) ** 0.5, 0.1]
-    args = [(torch.randn(s, generator=g, device=cuda) * std).to(dtype)
-            for s, std in zip(shapes, stds)]
-    with torch.inference_mode():
-        got = cuda_stem.fused_stem(x, *args)
-        torch.cuda.synchronize()
-        ref = cuda_stem.stem_plain(x, *args)
+def test_cuda_tail_and_stem_take_inputs_off_16_byte_alignment(cuda, dtype):
+    """Inputs and weights one element past a 16-byte boundary: K3 and K4
+    stage through registers (bf16) or 4-byte cp.async copies (float32),
+    so they launch on them as they are."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    t2 = torch.randn(2, 12, 37, 53, generator=g, device=cuda).relu().to(dtype)
+    wt = (torch.randn(3, 12, 7, 7, generator=g, device=cuda) * 0.06).to(dtype)
+    b = (torch.randn(3, generator=g, device=cuda) * 0.1).to(dtype)
+    stem = _stem_args(cuda, dtype, 2, 37, 53, 12, seed=7)
     atol, rtol = _CUDA_TOL[dtype]
-    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    before = (cuda_tail.launches, cuda_stem.launches)
+    with torch.inference_mode():
+        got = cuda_tail.tail_epilogue(*map(_misaligned, (t2, wt, b)))
+        torch.testing.assert_close(got.float(), cuda_tail.tail_plain(t2, wt, b).float(),
+                                   atol=atol, rtol=rtol)
+        got = cuda_stem.fused_stem(*map(_misaligned, stem))
+        torch.testing.assert_close(got.float(), cuda_stem.stem_plain(*stem).float(),
+                                   atol=atol, rtol=rtol)
+    assert (cuda_tail.launches, cuda_stem.launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 16, 528, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        cuda_attn.block_attention(q, q, q, 2)            # dh 264 > 256
+        cuda_attn.block_attention(q, q, q, 5)            # 5 heads do not divide E 528
     with pytest.raises(TypeError):
         cuda_attn.block_attention(q.half(), q.half(), q.half(), 2)
     w = torch.randn(3, 12, 7, 7, device=cuda, requires_grad=True)
@@ -369,7 +442,9 @@ def _k2_block(dev, dtype, n, s, e, heads, seed=5):
                                          (8, 256, 96, 4),     # LViT L1, dh 24
                                          (4, 256, 384, 4),    # GViT L1, dh 96
                                          (4, 256, 512, 4),    # GViT L1 at the defaults, dh 128
-                                         (2, 64, 384, 32)])   # dh 12, padded
+                                         (2, 64, 384, 32),    # dh 12, padded
+                                         (2, 64, 20, 4),      # dh 5: odd, padded heads in bf16
+                                         (1, 64, 1280, 4)])   # dh 320: the wide attention
 def test_cuda_fused_vit_matches_twin(cuda, dtype, n, s, e, heads):
     spec, vit, t = _k2_block(cuda, dtype, n, s, e, heads)
     w = vit.fused_weights()
@@ -427,13 +502,18 @@ def test_cuda_fused_vit_rejects_what_it_does_not_take(cuda, monkeypatch):
         cuda_vit.fused_tokens(t.half(), [x.half() for x in w], 4)
     with pytest.raises(ValueError, match="pos"):
         cuda_vit.fused_tokens(t[:, :32].contiguous(), w, 4)   # S 32 against pos [64, E]
-    # a block `supported` admits but the kernel does not take raises on
-    # the switched-on path: E 264 in one head is head dim 264 > 256
+    # every block `supported` admits now runs on the switched-on path: E
+    # 264 in one head is head dim 264, K1's wide attention inside K2
     monkeypatch.setenv("CFEN_PALLAS_VIT", "1")
     spec, vit, t = _k2_block(cuda, torch.float32, 1, 64, 264, 1)
     assert cuda_vit.supported(spec)
-    with pytest.raises(ValueError, match="head dim"):
-        vit.tokens(t)
+    before = cuda_vit.launches
+    with torch.inference_mode():
+        got = vit.tokens(t)
+        ref = cuda_vit.fused_tokens_plain(t, vit.fused_weights(), 1)
+    assert cuda_vit.launches == before + 1
+    frac, rtol = _K2_TOL[torch.float32]
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=frac * ref.abs().max().item())
 
 
 @pytest.mark.cuda
