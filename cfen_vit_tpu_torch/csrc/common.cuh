@@ -35,6 +35,14 @@ template <typename T> __device__ __forceinline__ float add_bias(float acc, float
   return round_to<T>(round_to<T>(acc) + bias);
 }
 
+// element e of a 16-byte vector of T (8 bf16 or 4 float32), as float
+template <typename T> __device__ __forceinline__ float vec_elem(const uint4& v, int e) {
+  const int i = sizeof(T) == 4 ? e : e >> 1;   // its 32-bit word
+  const uint32_t w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  if (sizeof(T) == 4) return __uint_as_float(w);
+  return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);   // a bf16 is a float's high half
+}
+
 // cp.async's 16-byte copies need 16-byte aligned global addresses
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 

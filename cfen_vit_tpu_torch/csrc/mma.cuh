@@ -1,4 +1,4 @@
-// Tensor-core fragment helpers shared by K1 (attn.cuh) and K5 (mrf.cu):
+// Tensor-core fragment helpers shared by the kernels on the tensor cores:
 // mma.sync products in bf16 and TF32 with float32 accumulation, the 3xTF32
 // split that keeps a float32 product at float32 accuracy, ldmatrix and
 // cp.async.
@@ -77,6 +77,18 @@ __device__ __forceinline__ void tf32x3_1688(float c[4], const uint32_t ah[4],
   tf32_1688(c, al, bh);
   tf32_1688(c, ah, bl);
   tf32_1688(c, ah, bh);
+}
+
+// acc += part for n values, each add rounded to nearest.  The 3xTF32
+// kernels (K2's linears, K6) sum each k stage's products into a zero
+// `part` and add it to the sum here: the tensor cores' own accumulate
+// truncates, and a sum carried over a long k in one accumulator drifts
+// toward zero by up to an ulp of itself a product (past K2's float32
+// tolerance at k 5120)
+template <int N>
+__device__ __forceinline__ void add_rn(float* acc, const float* part) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
 }
 
 // two bf16 values packed into one 32-bit register, lo in the low half

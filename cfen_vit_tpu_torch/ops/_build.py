@@ -51,9 +51,11 @@ _SIGNATURES = {
     "cfen_mrf_bwd_dt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # t, the array of 17 weight pointers, out, scratch
     "cfen_vit_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, offset, mask, w, b (or null), out; n, c, h, w, o, k, oh, ow,
-    # stride, pad, dilation, dtype
-    "cfen_deform_fwd": [_P] * 6 + [_I] * 12 + [_P],
+    # one of K2's linears: a, w, bias, out; m, n, k, tile, dtype, int* tile used
+    "cfen_vit_linear": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _P],
+    # x, offset, mask, w, b (or null), out, scratch; n, c, h, w, o, k, oh,
+    # ow, stride, pad, dilation, dtype
+    "cfen_deform_fwd": [_P] * 7 + [_I] * 12 + [_P],
 }
 
 _lock = threading.Lock()

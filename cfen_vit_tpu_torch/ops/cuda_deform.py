@@ -2,9 +2,12 @@
 cfen_vit_tpu/ops/pallas_deform.py).
 
 Replaces the TPU kernel `modulated_deform_conv_pallas` (pallas_deform.py,
-kernel `_kernel`) with csrc/deform.cu: the direct bilinear im2col form,
-gathering natively, with neither the TPU kernel's window nor its clamp of
-the displacements.  See the source's header for what bounds it on the card.
+kernel `_kernel`) with csrc/deform.cu: the bilinear im2col form as an
+implicit GEMM on the tensor cores, gathering natively, with neither the
+TPU kernel's window nor its clamp of the displacements.  The kernel takes
+scratch for x in channel-last order, the weights repacked K-major and,
+above 512 output channels, the sampled patches (`scratch_elems`).  See the source's header for what bounds it on the
+card.
 
 `ops/deform_conv.modulated_deform_conv` calls `deform_conv_cuda` for CUDA
 tensors; a CUDA input the kernel does not take raises.  Under autograd the
@@ -56,6 +59,20 @@ class _Deform(torch.autograd.Function):
         return grads + (None, None, None)
 
 
+def scratch_elems(n: int, c: int, h: int, w: int, o: int, k: int, npix: int,
+                  dtype: torch.dtype) -> int:
+    """The scratch csrc/deform.cu takes: x as [N, H, W, C rounded up to 8]
+    and the weights as [O, K^2, C rounded up to kCC = 32], zero-padded;
+    above 512 output channels also the patches of every 32-pixel tile of
+    the npix output pixels, [N, tiles, K^2, C to 32] (in float32 twice,
+    their TF32 hi and lo parts), which the kernel samples once and reads
+    back for each further chunk of 512 channels."""
+    cp = -(-c // 32) * 32
+    patches = 0 if o <= 512 else (
+        n * -(-npix // 32) * 32 * k * k * cp * (2 if dtype == torch.float32 else 1))
+    return n * h * w * -(-c // 8) * 8 + o * k * k * cp + patches
+
+
 def _launch(x, offset, mask, w, b, stride, pad, dilation):
     global launches
     tensors = (x, offset, mask, w) + (() if b is None else (b,))
@@ -84,12 +101,14 @@ def _launch(x, offset, mask, w, b, stride, pad, dilation):
                          f"{tuple(mask.shape)} and "
                          f"{None if b is None else tuple(b.shape)}")
     out = torch.empty((n, o, oh, ow), device=x.device, dtype=x.dtype)
+    scratch = torch.empty(scratch_elems(n, c, h, wd, o, k, oh * ow, x.dtype),
+                          device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         rc = _build.library().cfen_deform_fwd(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w.data_ptr(),
-            None if b is None else b.data_ptr(), out.data_ptr(), n, c, h, wd, o,
-            k, oh, ow, stride, pad, dilation, _build.dtype_code(x),
-            _build.stream(x))
+            None if b is None else b.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), n, c, h, wd, o, k, oh, ow, stride, pad,
+            dilation, _build.dtype_code(x), _build.stream(x))
     _build.check(rc, "cfen_deform_fwd")
     launches += 1
     return out

@@ -7,9 +7,10 @@ bias-free multi-head attention, the MLP and mlp_head plus residual, on
 [N, S, E] tokens, rounding where the TPU kernel rounds (every linear in
 float32 then once to the compute dtype, LayerNorm in float32, q cast to
 float32 before its scale, the softmax divided in float32).  On Hopper the
-block is bound by its operations; the kernel cuts it into eight launches
-of one tiled linear kernel and the attention kernel K1 shares, with the
-intermediates in scratch (see the source's header).
+block is bound by its operations; the kernel cuts it into seven launches
+of one tensor-core linear kernel (bf16 mma.sync, float32 3xTF32, fed by a
+cp.async ring), two of a LayerNorm kernel and one of the attention kernel
+K1 shares, with the intermediates in scratch (see the source's header).
 
 `fused_tokens_plain` is the same arithmetic in plain PyTorch: the tests
 and chip_smoke.py hold the kernel against it, and `fused_tokens` runs it
@@ -148,6 +149,21 @@ class _FusedTokens(torch.autograd.Function):
         return (None, *grads)
 
 
+def scratch_elems(n: int, s: int, e: int, h: int, num_heads: int,
+                  dtype: torch.dtype) -> int:
+    """The scratch csrc/vit.cu vit_forward lays out: t1, qkv, att, src and
+    the hidden (6e + h a row), and at an odd bf16 head dim the padded q, k,
+    v (3 heads (dh + 1) a row), each buffer rounded up to 8 elements so
+    that it starts on 16 bytes."""
+    m, dh = n * s, e // num_heads
+    hs = cuda_attn.head_stride(dh, dtype)
+    padded = 3 * num_heads * hs if hs != dh else 0
+
+    def r8(v):
+        return -(-v // 8) * 8
+    return 3 * r8(m * e) + r8(3 * m * e) + r8(m * h) + r8(m * padded)
+
+
 def _launch(t, weights, num_heads):
     global launches
     _build.check_cuda_inputs("fused_vit_tokens", t, *weights)
@@ -173,12 +189,8 @@ def _launch(t, weights, num_heads):
         raise ValueError(f"fused_vit_tokens: head dim {e / num_heads} (E {e}, "
                          f"{num_heads} heads) at S {s} in {t.dtype}")
     out = torch.empty_like(t)
-    dh = e // num_heads
-    hs = cuda_attn.head_stride(dh, t.dtype)
-    # the intermediates, and at an odd bf16 head dim the padded q, k, v
-    padded = 3 * num_heads * hs if hs != dh else 0
-    scratch = torch.empty(n * s * (6 * e + h + padded), device=t.device,
-                          dtype=t.dtype)
+    scratch = torch.empty(scratch_elems(n, s, e, h, num_heads, t.dtype),
+                          device=t.device, dtype=t.dtype)
     ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
     with torch.cuda.device(t.device):
         rc = _build.library().cfen_vit_fwd(

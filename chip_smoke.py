@@ -16,11 +16,13 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      [4,256,384], and with CFEN_PALLAS_VIT_MIN_E=0 LViT L1 [256,256,96]
      and L2 [64,256,192]), in float32 and bfloat16, each against its plain
      PyTorch version on the card (max abs error, tolerance, median
-     CUDA-event times, the card's bound; K1 also beside
+     CUDA-event times, the card's bound: the products on the tensor
+     cores, float32 as 3xTF32, or the bytes; K1 also beside
      F.scaled_dot_product_attention, K2 beside the unfused token path it
-     replaces; K1 and SDPA also in five interleaved rounds, summed over
-     the six shapes; K5's do and dt per layer and summed, beside the
-     bound of the products their design runs); untimed, K1 at S 1024, 4096
+     replaces, with its device time from the profiler; K1 and SDPA also
+     in five interleaved rounds, summed over the six shapes; K3, K4 and
+     K5's do and dt beside the bound of the work their design runs);
+     untimed, K1 at S 1024, 4096
      and 16384, a ragged S and head dims 12 to 256 (the defaults' 32 and
      128 among them), K3 and K4 at widths 4, 16 and 32, and K5 at a ragged
      P; then MrfCore against the dense mrf_core_plain on value and both
@@ -62,7 +64,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      at 2x64x64, 64->64 with offsets of std 12 (a third beyond the TPU
      kernel's ±12 window), in float32 and bfloat16 (kernel, plain and,
      where torchvision imports, torchvision.ops.deform_conv2d times; the
-     bound); the five grads of the K6 autograd Function against autograd
+     bound and the profiler's device time);
+     the five grads of the K6 autograd Function against autograd
      of deform_plain at 4x256x256, 48->48; then its main path, counted:
      a ModulatedDeformConvPack forward and backward on the card (one
      launch, one recompute, output equal to the Pack on deform_plain) and
@@ -164,11 +167,14 @@ MRF_LAYERS = {MRF_SHAPES[0]: "relu3_1", MRF_SHAPES[1]: "relu4_1"}
 # sums over P terms in another order; bf16 outputs by a rounding flip;
 # atol is that share of the largest |value|.
 MRF_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 1e-2)}
-# the card's published peaks (H100 SXM, dense): float32 outside the
-# tensor cores, bf16 tensor cores, HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the card's published peaks (H100 SXM, dense): TF32 and bf16 tensor
+# cores, float32 FFMA outside them, HBM3.  A float32 product at float32
+# accuracy runs fastest as three TF32 passes (3xTF32, 165 TFLOP/s against
+# FFMA's 67), so that is float32's rate in every bound
+PEAK_TF32 = 495e12
+PEAK_FFMA = 67e12
+PEAK_FLOPS = {"float32": PEAK_TF32 / 3, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
-PEAK_TF32 = 495e12   # dense TF32 tensor cores
 # kernels whose device time phase 3 also reads from the profiler (a short
 # kernel's CUDA-event time is set by the host's launch path): the part of
 # the kernel's name it matches
@@ -233,21 +239,12 @@ def time_ms(torch, fn, reps=20, warmup=3) -> float:
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str):
-    """The least time the card could take: the larger of the operations
-    over the peak rate for the inputs' type and the bytes over HBM's."""
+    """The least time the card could take: the larger of the products'
+    operations over the fastest rate for the inputs' type (bf16 tensor
+    cores; float32 as 3xTF32) and the bytes over HBM's."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
-
-
-def split_bound(dtype: str, tensor_flops: float):
-    """For a float32 kernel whose products run on the tensor cores as
-    3xTF32, the least time of that route in ms: three TF32 products at 495
-    TFLOP/s; None for other dtypes.  It is logged beside the kernel's
-    times, not written to the kernels line."""
-    if dtype != "float32":
-        return None
-    return 3 * tensor_flops / PEAK_TF32 * 1e3
 
 
 def design_bound(dtype: str, cos_flops: float) -> float:
@@ -269,7 +266,7 @@ def tail_design_ms(dtype: str, n: int, c: int, h: int, w: int, out_c: int) -> fl
         px = n * -(-h // 16) * 16 * -(-w // 32) * 32
         return 2.0 * px * 49 * -(-c // 16) * 16 * 8 / PEAK_FLOPS[dtype] * 1e3
     px = n * -(-h // 32) * 32 * -(-w // 32) * 32
-    return 2.0 * px * 49 * c * out_c / PEAK_FLOPS[dtype] * 1e3
+    return 2.0 * px * 49 * c * out_c / PEAK_FFMA * 1e3
 
 
 def stem_design_ms(torch, dtype: str, n: int, cm: int, h: int, w: int) -> float:
@@ -290,18 +287,11 @@ def stem_design_ms(torch, dtype: str, n: int, cm: int, h: int, w: int) -> float:
         return -(-(rows * cols) // 16) * 16
     # the head skips a chunk's channels past cm four at a time
     head_n = sum(min(8 * nt, -(-(cm - n0) // 4) * 4) for n0 in range(0, cm, 8 * nt))
-    head = tiles * (th + 4) * (tw + 4) * 75 * head_n * 2.0 / PEAK_FLOPS["float32"]
+    head = tiles * (th + 4) * (tw + 4) * 75 * head_n * 2.0 / PEAK_FFMA
     macs = tiles * (strips(th + 2, tw + 2) + strips(th, tw)) * 9 * cpad * nc
     if dtype == "bfloat16":
         return (head + 2.0 * macs / PEAK_FLOPS[dtype]) * 1e3
     return (head + 3 * 2.0 * macs / PEAK_TF32) * 1e3
-
-
-def _log_split_sums(sums):
-    """The 3xTF32 bounds summed per kernel over the timed float32 shapes."""
-    for kernel, v in sums.items():
-        log("kernel", f"{kernel} float32: 3xTF32 bound summed over the timed "
-            f"shapes {v:.4f} ms")
 
 
 def _k1_against_sdpa(torch, cases, rounds=5):
@@ -372,6 +362,12 @@ def kernel_cases(torch, spec):
     return cases
 
 
+def _ms(v) -> str:
+    """A time for a log line; None (a profiler trace that lost records,
+    bench_cases.device_times) is "not measured"."""
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
 def _record(results, kernel, dn, err, ms, plain_ms, bound, library_ms=None,
             **summed):
     """Adds one shape's numbers to the (kernel, dtype) entry of the kernels
@@ -385,8 +381,9 @@ def _record(results, kernel, dn, err, ms, plain_ms, bound, library_ms=None,
     r["bound_ms"] += bound[0]
     if library_ms is not None:
         r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
-    for key, value in summed.items():
-        r[key] = r.get(key, 0.0) + value
+    for key, value in summed.items():   # None (not measured) stays None
+        have = r.get(key, 0.0)
+        r[key] = None if have is None or value is None else have + value
 
 
 def _hold(torch, label, wrapper, plain, a, dn, untimed=False):
@@ -419,8 +416,8 @@ def _hold_untimed(torch, cases):
 def phase_kernels(torch, spec, results):
     """K1, K3, K4 against their plain versions; adds per (kernel, dtype)
     the max error and the summed times and bounds over the shapes."""
-    from cfen_vit_tpu_torch.bench_conv import device_ms
-    failures, split_sums, k1_cases = [], defaultdict(float), []
+    from cfen_vit_tpu_torch.bench_cases import device_ms
+    failures, k1_cases = [], []
     design_sums = defaultdict(float)
     with torch.inference_mode():
         for (kernel, label, wrapper, plain, args, flops, elems,
@@ -434,27 +431,23 @@ def phase_kernels(torch, spec, results):
                 plain_ms = time_ms(torch, lambda: plain(*a))
                 lib_ms = library and time_ms(torch, lambda: library(*a))
                 bound = bound_ms(flops, elems * a[0].element_size(), dn)
-                split = split_bound(dn, flops) if kernel == "attention" else None
                 design = _conv_design_ms(torch, kernel, dn, a)
                 dev = (device_ms(lambda: wrapper(*a), CONV_KERNEL_NAMES[kernel])
                        if kernel in CONV_KERNEL_NAMES else None)
                 lib = f", library {lib_ms:.4f} ms" if library else ""
                 log("kernel", f"{kernel} {label} {dn}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms{lib}, bound {bound[0]:.4f} ms ({bound[1]})"
-                    + (f", 3xTF32 bound {split:.4f} ms" if split else "")
                     + (f", design bound {design:.4f} ms" if design else "")
-                    + (f", device {dev:.4f} ms (profiler)" if dev else ""))
+                    + (f", device {_ms(dev)} (profiler)"
+                       if kernel in CONV_KERNEL_NAMES else ""))
                 if design:
                     design_sums[(kernel, dn)] += design
                 _record(results, kernel, dn, err, ms, plain_ms, bound,
                         lib_ms or None)
-                if split:
-                    split_sums[kernel] += split
                 if kernel == "attention":
                     k1_cases.append((dn, a, wrapper, library))
                 if not ok:
                     failures.append(f"{kernel} {label} {dn}")
-        _log_split_sums(split_sums)
         for (kernel, dn), v in design_sums.items():
             log("kernel", f"{kernel} {dn}: design bound summed over the timed "
                 f"shapes {v:.4f} ms")
@@ -512,33 +505,6 @@ def _width_cases(torch):
     return cases
 
 
-def k2_blocks(spec):
-    """(label, ViTSpec, rows) of the blocks K2 takes at batch 4: LViT L3 and
-    GViT L1 by default, LViT L1 and L2 with CFEN_PALLAS_VIT_MIN_E=0."""
-    tiles = {lvl: (spec.level_size(lvl) // spec.patch_size) ** 2
-             for lvl in (1, 2, 3)}
-    return [("LViT L3", spec.lvit_spec(3), BATCH * tiles[3]),
-            ("GViT L1", spec.gvit_spec(1, encoder=False), BATCH),
-            ("LViT L1", spec.lvit_spec(1), BATCH * tiles[1]),
-            ("LViT L2", spec.lvit_spec(2), BATCH * tiles[2])]
-
-
-def k2_case(torch, vspec, n, dtype, seed):
-    """A ViT block with the generator's init plus random biases and
-    LayerNorm affines (so every term counts), and seeded tokens, on the
-    card in dtype."""
-    from cfen_vit_tpu_torch.models.generator import init_weights
-    from cfen_vit_tpu_torch.models.vit import ViT
-    g = torch.Generator().manual_seed(seed)
-    vit = init_weights(ViT(vspec), g)
-    with torch.no_grad():
-        for name, prm in vit.named_parameters():
-            if name.endswith("bias") or "norm" in name:
-                prm.add_(torch.randn(prm.shape, generator=g) * 0.1)
-    t = torch.randn(n, vspec.seq_length, vspec.embedding_dim, generator=g)
-    return vit.to("cuda", dtype).eval(), t.to("cuda", dtype)
-
-
 def k2_cost(vspec, n, item):
     """Operations (the ten E x E linears, QK^T and PV, the two MLPs) and
     bytes (tokens in and out, the 5E^2 + 4EH + SE weights)."""
@@ -547,16 +513,27 @@ def k2_cost(vspec, n, item):
     return flops, (2.0 * n * s * e + 5 * e * e + 4 * e * h + s * e) * item
 
 
+def _log_totals(phase, results, kernel):
+    """The kernels line's sums of one kernel, per dtype, as a log line."""
+    for (name, dn), r in results.items():
+        if name == kernel:
+            log(phase, f"{kernel} {dn} summed over the timed shapes: kernel "
+                f"{r['ms']:.4f} ms, device {_ms(r['device_ms'])} (profiler), "
+                f"bound {r['bound_ms']:.4f} ms"
+                + (f", unfused {r['unfused_ms']:.4f} ms" if "unfused_ms" in r else ""))
+
+
 def phase_fused_vit(torch, spec, results):
     """K2 against its twin at its four blocks, beside the unfused token
     path (ViT.tokens with K2 off: cuBLAS linears and K1) it replaces."""
+    from cfen_vit_tpu_torch.bench_cases import device_ms, k2_blocks, k2_case
     from cfen_vit_tpu_torch.ops import cuda_vit
     failures = []
     with torch.inference_mode():
         for label, vspec, n in k2_blocks(spec):
             for dtype in (torch.float32, torch.bfloat16):
                 dn = str(dtype).split(".")[-1]
-                vit, t = k2_case(torch, vspec, n, dtype, SEED)
+                vit, t = k2_case(vspec, n, dtype, SEED)
                 w, heads = vit.fused_weights(), vspec.num_heads
                 got = cuda_vit.fused_tokens(t, w, heads)
                 torch.cuda.synchronize()
@@ -571,19 +548,22 @@ def phase_fused_vit(torch, spec, results):
                 plain_ms = time_ms(torch, lambda: cuda_vit.fused_tokens_plain(
                     t, w, heads))
                 unfused_ms = time_ms(torch, lambda: vit.tokens(t))
-                bound = bound_ms(*k2_cost(vspec, n, t.element_size()), dn)
+                dev = device_ms(lambda: cuda_vit.fused_tokens(t, w, heads))
+                cost = k2_cost(vspec, n, t.element_size())
+                bound = bound_ms(*cost, dn)
                 log("kernel", f"fused_vit {label} [{n},{vspec.seq_length},"
                     f"{vspec.embedding_dim}] h{heads} H{vspec.hidden_dim} {dn}: "
                     f"max_abs_err {err:.3g} of max |out| {top:.3g}, relative "
                     f"norm {rel:.3g} (atol {frac:.3g} x max, rtol {rtol}) "
-                    f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, twin "
-                    f"{plain_ms:.4f} ms, unfused {unfused_ms:.4f} ms, bound "
-                    f"{bound[0]:.4f} ms ({bound[1]})")
+                    f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, device "
+                    f"{_ms(dev)} (profiler), twin {plain_ms:.4f} ms, unfused "
+                    f"{unfused_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
                 _record(results, "fused_vit", dn, err, ms, plain_ms, bound,
-                        unfused_ms=unfused_ms)
+                        unfused_ms=unfused_ms, device_ms=dev)
                 if not ok:
                     failures.append(f"fused_vit {label} {dn}")
                 del vit, t, got, ref
+    _log_totals("kernel", results, "fused_vit")
     if failures:
         raise AssertionError(f"K2 disagrees with its twin: {failures}")
 
@@ -635,7 +615,7 @@ def _check_mrf_stats(torch, o, t, got, ref):
 def phase_mrf_kernels(torch, results):
     """K5's three kernels against their twins at the ID-MRF shapes."""
     from cfen_vit_tpu_torch.ops import cuda_mrf as M
-    failures, split_sums = [], defaultdict(float)
+    failures = []
     sums = defaultdict(lambda: defaultdict(float))   # (kernel, dtype) -> totals
     with torch.inference_mode():
         for n, p, c in MRF_SHAPES + MRF_EXTRA:
@@ -655,13 +635,9 @@ def phase_mrf_kernels(torch, results):
                     plain_ms = time_ms(torch, lambda: M.mrf_forward_stats_plain(
                         o, t), 5, 1)
                     bound = bound_ms(cos_flops, 2 * n * p * c * item + stat_bytes, dn)
-                    split = split_bound(dn, cos_flops)
                     times = (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                             f"{bound[0]:.3f} ms ({bound[1]})"
-                             + (f", 3xTF32 bound {split:.3f} ms" if split else ""))
+                             f"{bound[0]:.3f} ms ({bound[1]})")
                     _record(results, "mrf_fwd", dn, err, ms, plain_ms, bound)
-                    if split:
-                        split_sums["mrf_fwd"] += split
                 layer = MRF_LAYERS.get((n, p, c), "ragged P")
                 log("kernel", f"mrf_fwd {layer} [{n},{p},{c}] {dn}: max_abs_err "
                     f"{err:.3g} (rtol 1e-4, atol 1e-6; {flips} index ties) "
@@ -704,7 +680,6 @@ def phase_mrf_kernels(torch, results):
                         f"{'ok' if ok else 'FAIL'}" + (times if timed else ", untimed"))
                     if not ok:
                         failures.append(f"{name} [{n},{p},{c}] {dn}")
-    _log_split_sums(split_sums)
     for (name, dn), v in sums.items():
         log("kernel", f"{name} {dn} summed over relu3_1 and relu4_1: kernel "
             f"{v['ms']:.3f} ms, plain {v['plain']:.3f} ms, bound "
@@ -732,6 +707,7 @@ def _grads(torch, fn, args, seed=9):
 def phase_autograd(torch, spec):
     """MrfCore against the dense plain core, and K1, K2, K3, K4 under
     autograd against their plain versions' autograd, on value and grads."""
+    from cfen_vit_tpu_torch.bench_cases import k2_blocks, k2_case
     from cfen_vit_tpu_torch.ops import cuda_mrf as M
     from cfen_vit_tpu_torch.ops import cuda_vit
     cases = []
@@ -751,7 +727,7 @@ def phase_autograd(torch, spec):
     label, vspec, n = k2_blocks(spec)[1]           # GViT L1
     k2_heads = vspec.num_heads
     for dtype in (torch.float32, torch.bfloat16):
-        vit, t = k2_case(torch, vspec, n, dtype, SEED + 2)
+        vit, t = k2_case(vspec, n, dtype, SEED + 2)
         cases.append((f"fused_vit {label} [{n},{vspec.seq_length},"
                       f"{vspec.embedding_dim}]", dtype,
                       lambda x, *w: cuda_vit.fused_tokens(x, w, k2_heads),
@@ -1350,6 +1326,7 @@ def phase_deform(torch, results):
     main path (the Pack and the bench entry point) with the counts reset;
     returns the launch counts of that run per dtype."""
     from cfen_vit_tpu_torch import bench_deform
+    from cfen_vit_tpu_torch.bench_cases import device_ms
     from cfen_vit_tpu_torch.ops import cuda_deform
     from cfen_vit_tpu_torch.ops import deform_conv as D
     library = _torchvision_deform()
@@ -1393,16 +1370,20 @@ def phase_deform(torch, results):
                     except RuntimeError as e:   # e.g. a dtype it does not take
                         lib = f", library refused {dn}: {str(e)[:80]}"
                 flops = 2.0 * n * h * w * k * k * cin * cout
-                elems = sum(t.numel() for t in args) + ref.numel()
-                bound = bound_ms(flops, elems * args[0].element_size(), dn)
+                nbytes = (sum(t.numel() for t in args) + ref.numel()) * args[0].element_size()
+                bound = bound_ms(flops, nbytes, dn)
+                dev = device_ms(lambda: D.modulated_deform_conv(*args, *geo))
                 log("deform", f"K6 {label} {dn}: max_abs_err {err:.3g} (atol "
                     f"{atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}; kernel "
-                    f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-                    f"{plain_ms:.4f} ms{lib}, bound {bound[0]:.4f} ms ({bound[1]})")
-                _record(results, "deform", dn, err, ms, plain_ms, bound, lib_ms)
+                    f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), device "
+                    f"{_ms(dev)} (profiler), plain {plain_ms:.4f} ms{lib}, bound "
+                    f"{bound[0]:.4f} ms ({bound[1]})")
+                _record(results, "deform", dn, err, ms, plain_ms, bound, lib_ms,
+                        device_ms=dev)
                 if not ok:
                     failures.append(f"K6 {label} {dn}")
                 del args, got, ref
+    _log_totals("deform", results, "deform")
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]

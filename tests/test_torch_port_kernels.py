@@ -420,12 +420,14 @@ def test_cuda_autograd_functions_match_plain_autograd(cuda, dtype):
 _K2_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-2)}
 
 
-def _k2_block(dev, dtype, n, s, e, heads, seed=5):
-    """A ViT block with the generator's init, random biases and LayerNorm
-    affines, on the card in dtype, and seeded tokens."""
+def _k2_block(dev, dtype, n, s, e, heads, seed=5, ratio=4):
+    """A ViT block (hidden ratio e) with the generator's init, random biases
+    and LayerNorm affines, on the card in dtype, and seeded tokens."""
     g = torch.Generator().manual_seed(seed)
-    spec = TV.ViTSpec(img_dim=int(s ** 0.5) * 2, patch_dim=2, num_channels=e // 4,
-                      embedding_dim=e, num_heads=heads, num_layers=1, hidden_dim=4 * e)
+    pd = 2 if e % 4 == 0 else 1    # an E of no 2x2 patch: 1x1 patches
+    spec = TV.ViTSpec(img_dim=int(s ** 0.5) * pd, patch_dim=pd, num_channels=e // pd ** 2,
+                      embedding_dim=e, num_heads=heads, num_layers=1,
+                      hidden_dim=ratio * e)
     vit = init_weights(TV.ViT(spec), g)
     with torch.no_grad():
         for name, prm in vit.named_parameters():
@@ -444,7 +446,12 @@ def _k2_block(dev, dtype, n, s, e, heads, seed=5):
                                          (4, 256, 512, 4),    # GViT L1 at the defaults, dh 128
                                          (2, 64, 384, 32),    # dh 12, padded
                                          (2, 64, 20, 4),      # dh 5: odd, padded heads in bf16
-                                         (1, 64, 1280, 4)])   # dh 320: the wide attention
+                                         (1, 64, 1280, 4),    # dh 320: the wide attention
+                                         # the linears' tiles: m 300 (no row
+                                         # tile divides it) at E 96 / 3E 288,
+                                         # m 320 at E 192, odd bf16 rows (E 99)
+                                         (3, 100, 96, 4), (5, 64, 192, 8),
+                                         (2, 64, 99, 3)])
 def test_cuda_fused_vit_matches_twin(cuda, dtype, n, s, e, heads):
     spec, vit, t = _k2_block(cuda, dtype, n, s, e, heads)
     w = vit.fused_weights()
@@ -457,6 +464,53 @@ def test_cuda_fused_vit_matches_twin(cuda, dtype, n, s, e, heads):
     frac, rtol = _K2_TOL[dtype]
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
                                atol=frac * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_vit_defaults_lvit_l2(cuda, dtype):
+    """The JAX package's default flags admit LViT L2 at [64, 256, 256] with
+    hidden 1536 (n_feats 32, hidden_dim_ratio 6, head dim 32): its MLP
+    linears take k 1536."""
+    spec, vit, t = _k2_block(cuda, dtype, 64, 256, 256, 8, ratio=6)
+    w = vit.fused_weights()
+    with torch.inference_mode():
+        got = cuda_vit.fused_tokens(t, w, 8)
+        torch.cuda.synchronize()
+        ref = cuda_vit.fused_tokens_plain(t, w, 8)
+    frac, rtol = _K2_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=frac * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [0, 1, 2, 3, -1])
+@pytest.mark.parametrize("m,n,k", [(300, 200, 1000),   # 16-byte epilogue
+                                   (300, 198, 999)])   # element epilogue, odd k
+def test_cuda_vit_linear_every_tile_matches_plain(cuda, dtype, tile, m, n, k):
+    """K2's linear kernel alone on each block tile of csrc/vit.cu (and on
+    the one `pick` chooses, tile -1): relu(a w^T + bias), the bias added in
+    float32 and rounded once, against the float32 product rounded alike.
+    No tile divides m or n, and k runs past several ring stages."""
+    import ctypes
+    from cfen_vit_tpu_torch.ops import _build
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(n, k, generator=g, device=cuda) * k ** -0.5).to(dtype)
+    b = (torch.randn(n, generator=g, device=cuda) * 0.1).to(dtype)
+    out = torch.empty(m, n, device=cuda, dtype=dtype)
+    used = ctypes.c_int(-2)
+    rc = _build.library().cfen_vit_linear(
+        a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, tile,
+        _build.dtype_code(a), ctypes.byref(used), _build.stream(a))
+    _build.check(rc, "cfen_vit_linear")
+    torch.cuda.synchronize()
+    assert used.value == tile if tile >= 0 else 0 <= used.value <= 3
+    ref = torch.relu((a.float() @ w.float().t() + b.float()).to(dtype)).float()
+    frac, rtol = _K2_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref, rtol=rtol,
+                               atol=frac * ref.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -547,7 +601,17 @@ def _deform_args(dev, dtype, n, h, w, c, o, k, stride, pad, dil, off_scale, seed
 # about a third of the offsets beyond the TPU kernel's ±12 window
 _DEFORM_CASES = [(2, 16, 20, 24, 40, 3, 1, 1, 1, 2.0),
                  (1, 33, 30, 20, 70, 5, 1, 2, 1, 2.0),
-                 (2, 17, 19, 8, 16, 3, 2, 1, 2, 12.0)]
+                 (2, 17, 19, 8, 16, 3, 2, 1, 2, 12.0),
+                 # the implicit GEMM's edges: C 33 (a 32-channel stage and
+                 # one channel), O 13 (off the n8 tiles), O 130 at K 5 (past
+                 # a 128-channel block), O 256, O 600 (past 512: two chunks,
+                 # the second on the patches the first kept), O 1100 at K 5,
+                 # stride 2 (three chunks, the last ragged)
+                 (2, 15, 18, 33, 13, 3, 1, 1, 1, 2.0),
+                 (2, 19, 17, 20, 130, 5, 1, 2, 1, 2.0),
+                 (1, 20, 21, 64, 256, 3, 1, 1, 1, 2.0),
+                 (1, 12, 13, 40, 600, 3, 1, 1, 1, 2.0),
+                 (2, 9, 11, 20, 1100, 5, 2, 2, 1, 2.0)]
 
 
 @pytest.mark.cuda
