@@ -6,7 +6,9 @@ Pure numpy with the exporter's transposes (torch_export.py _conv, _convT,
 _linear, _an), so it never imports the JAX package.  It writes exactly the
 tensors the port's modules own: the exporter's key set minus the dead
 tensors it synthesises for the reference (interop/torch_import.py lists
-them).  Covers the v3 structure the port builds.
+them).  Covers every `--model_G` spec, with the reference names of each
+family (models/generator.py's `*_name` functions, JAX
+interop/torch_import.py).
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.generator import GenSpec, check_ported
+from ..models import generator as G
+from ..models.generator import GenSpec
 
 
 def _conv(p):
@@ -25,7 +28,9 @@ def _conv(p):
 
 
 def _convT(p):
-    return {"weight": np.asarray(p["w"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1],
+    # a copy: a flipped 1x1 keeps negative strides that
+    # np.ascontiguousarray lets through and torch.tensor refuses
+    return {"weight": np.asarray(p["w"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1].copy(),
             "bias": np.asarray(p["b"])}
 
 
@@ -43,6 +48,10 @@ def _an(p):
 
 
 def _vit(sd, prefix, p):
+    for key in ("conv_shrink", "conv_extend"):
+        if key in p:
+            _put(sd, f"{prefix}.{key}.0", _conv(p[key]["conv"]))
+            _put(sd, f"{prefix}.{key}.1", _an(p[key]["an"]))
     if "linear_encoding" in p:
         _put(sd, f"{prefix}.linear_encoding", _linear(p["linear_encoding"]))
         _put(sd, f"{prefix}.mlp_head.0", _linear(p["mlp_head"]["l1"]))
@@ -68,49 +77,77 @@ def _put(sd, prefix, tensors):
         sd[f"{prefix}.{k}"] = v
 
 
+def _conv_an(sd, prefix, p, conv=_conv):
+    """{conv, an?} -> `prefix.0` (+ `prefix.1`)."""
+    _put(sd, f"{prefix}.0", conv(p["conv"]))
+    if "an" in p:
+        _put(sd, f"{prefix}.1", _an(p["an"]))
+
+
+def _level(sd, params, spec, encoder, lvl, jsfx, sfx):
+    """One level's blocks; `jsfx` the JAX key suffix, `sfx` the port's."""
+    tag = "e" if encoder else "d"
+    cnn, lname, gname, cname = G.level_names(spec, encoder, lvl, sfx)
+    if spec.cnn:
+        for i, blk in enumerate(params[f"cnn_{tag}0{lvl}{jsfx}"]):
+            for conv, an, slot in (("c1", "an1", 1), ("c2", "an2", 5)):
+                _put(sd, f"{cnn}.{i}.conv_block.{slot}", _conv(blk[conv]))
+                _put(sd, f"{cnn}.{i}.conv_block.{slot + 1}", _an(blk[an]))
+        return
+    for jkey, name in (("lvit", lname), ("gvit", gname)):
+        if f"{jkey}_{tag}0{lvl}{jsfx}" in params:
+            _vit(sd, name, params[f"{jkey}_{tag}0{lvl}{jsfx}"])
+    if f"lgcat_{tag}0{lvl}{jsfx}" in params:
+        _conv_an(sd, cname, params[f"lgcat_{tag}0{lvl}{jsfx}"])
+
+
 def state_dict_from_jax(params, spec: GenSpec) -> dict:
     """JAX param tree of `spec` -> {key: torch.Tensor} for Generator(spec)."""
-    check_ported(spec)
     sd: dict = {}
     _put(sd, "head.0.0", _conv(params["head"]["conv"]))
     _put(sd, "head.0.1.body.0", _conv(params["head"]["res"]["c1"]))
     _put(sd, "head.0.1.body.2", _conv(params["head"]["res"]["c2"]))
-    _put(sd, "ds_conv_e01.0", _conv(params["ds_e01"]["conv"]))
-    for lvl in (1, 2, 3):
-        if lvl > 1:
-            _put(sd, f"ds_conv_e0{lvl}.0", _conv(params[f"ds_e0{lvl}"]["conv"]))
-        _vit(sd, f"localvit_encoder_0{lvl}", params[f"lvit_e0{lvl}"])
-        _vit(sd, f"globalvit_encoder_0{lvl}", params[f"gvit_e0{lvl}"])
-        _put(sd, f"lgcat_conv_e0{lvl}.0", _conv(params[f"lgcat_e0{lvl}"]["conv"]))
-        _put(sd, f"lgcat_conv_e0{lvl}.1", _an(params[f"lgcat_e0{lvl}"]["an"]))
-    for b in "rsd":
+    if spec.half_res_trunk:
+        _put(sd, "ds_conv_e01.0", _conv(params["ds_e01"]["conv"]))
+    # JAX keys dec_ipt's encoders by branch letter (r, s), the port by the
+    # reference suffix ("", s)
+    jencs = list(spec.branches) if spec.separate_encoders else [""]
+    for je in jencs:
+        e = G.enc_suffix(spec, je) if je else ""
+        for lvl in (1, 2, 3):
+            if lvl > 1:
+                _conv_an(sd, f"ds_conv_e0{lvl}{e}", params[f"ds_e0{lvl}{je}"])
+            _level(sd, params, spec, True, lvl, je, e)
+    for b in spec.branches:
         for lvl in (3, 2, 1):
-            _vit(sd, f"localvit_decoder_0{lvl}{b}", params[f"lvit_d0{lvl}{b}"])
-            _vit(sd, f"globalvit_decoder_0{lvl}{b}", params[f"gvit_d0{lvl}{b}"])
-            key = f"lgcat_d0{lvl}{b}"
-            _put(sd, f"lgcat_conv_d0{lvl}{b}.0", _conv(params[key]["conv"]))
-            _put(sd, f"lgcat_conv_d0{lvl}{b}.1", _an(params[key]["an"]))
-        _put(sd, f"us_conv_d03{b}.0", _convT(params[f"us_d03{b}"]["conv"]))
-        for lvl in (2, 1):
-            us = params[f"us_d0{lvl}{b}"]
-            _put(sd, f"us_conv_d0{lvl}{b}.0", _convT(us["conv"]))
-            _put(sd, f"us_conv_d0{lvl}{b}.1", _an(us["an"]))
-        if b in "rs":
+            _level(sd, params, spec, False, lvl, b, b)
+        _put(sd, f"{G.us_name(spec, 3, b)}.0", _convT(params[f"us_d03{b}"]["conv"]))
+        _conv_an(sd, G.us_name(spec, 2, b), params[f"us_d02{b}"], _convT)
+        if spec.half_res_trunk:
+            _conv_an(sd, f"us_conv_d01{b}", params[f"us_d01{b}"], _convT)
+        if G.has_sk(spec, b):
+            conv = _convT if (spec.sk_conv_transposed or (
+                b == "d" and spec.d_skip == "cat_partner")) else _conv
             for lvl in (3, 2):
-                sk = params[f"sk_d0{lvl}{b}"]
-                _put(sd, f"sk_conv_d0{lvl}{b}.0", _conv(sk["conv"]))
-                _put(sd, f"sk_conv_d0{lvl}{b}.1", _an(sk["an"]))
-    for lvl in (3, 2):
-        for name, fc in params[f"cfs_d0{lvl}d"].items():
-            prefix = f"cfsm2g_d0{lvl}d.0.{name}"
-            sd[f"{prefix}.0.weight"] = np.asarray(fc["c1"]["w"]).transpose(3, 2, 0, 1)
-            sd[f"{prefix}.2.weight"] = np.asarray(fc["c2"]["w"]).transpose(3, 2, 0, 1)
-    for b, name in (("r", "tail_R"), ("s", "tail_S"), ("d", "tail_D")):
-        tp = params[f"tail_{b}"]
+                _conv_an(sd, f"sk_conv_d0{lvl}{b}", params[f"sk_d0{lvl}{b}"],
+                         conv)
+    if spec.d_skip == "cfs":
+        for lvl in (3, 2):
+            for name, fc in params[f"cfs_d0{lvl}d"].items():
+                prefix = f"cfsm2g_d0{lvl}d.0.{name}"
+                sd[f"{prefix}.0.weight"] = np.asarray(fc["c1"]["w"]).transpose(3, 2, 0, 1)
+                sd[f"{prefix}.2.weight"] = np.asarray(fc["c2"]["w"]).transpose(3, 2, 0, 1)
+    for b in G.tail_branches(spec):
+        name, tp = G.tail_name(spec, b), params[f"tail_{b}"]
         _put(sd, f"{name}.0.1", _conv(tp["conv1"]))
         if "an" in tp:
             _put(sd, f"{name}.0.2", _an(tp["an"]))
-        _put(sd, f"{name}.0.{5 if b != 's' else 4}", _conv(tp["conv2"]))
+        slot = 4 if G.tail_norm(spec, b) is None else 5
+        _put(sd, f"{name}.0.{slot}", _conv(tp["conv2"]))
+    if spec.xdh:
+        for name, conv in params["sp"].items():
+            _put(sd, f"sp.{name}.0" if name == "refine3" else f"sp.{name}",
+                 _conv(conv))
     return _tensors(sd)
 
 

@@ -10,6 +10,10 @@ rest with strict=True:
   * `*.position_ids`: the position-index buffers;
   * `sub_mean.*`, `add_mean.*`: the MeanShift layers (ref v3:120-121).
 
+Every spec family stores these same dead tensors (JAX
+interop/torch_import.py reads none of them): the MeanShift pair, and in
+each of its LViT/GViT blocks the decoder, query_embed (where the block has
+an MLP) and position_ids (where it has positions); iid_cnn_crs has no ViT.
 A `module.` (DataParallel) prefix is stripped as the reference does.
 """
 

@@ -5,8 +5,9 @@ Batches arrive as NHWC from the data loader (data/) and travel to
 the device as uint8; the forward normalises with x/127.5 - 1 and returns
 uint8 through the reference's truncating tensor2im (`forward_u8`, which
 the server calls directly).  Visuals are named real_B / fake_A / fake_R /
-fake_S as in the reference.  With --out_all the generator runs its d-only
-path and only fake_A comes back.
+fake_S / fake_A_refined as in the reference; dec_ipt, which has no D
+branch, names its refined output fake_A.  With --out_all a generator with
+a D branch runs its d-only path and only fake_A comes back.
 
 --self_ensemble and --chop (models/inference_utils.py) compose the float
 forward, so under either flag the uint8 wire is off: set_input takes the
@@ -14,7 +15,9 @@ loader's [-1, 1] floats and the visuals come back as float32.  --chop
 tiles at the configured input size with --chop_overlap and passes an
 input of exactly that size through whole.
 
-Ported: `--model` dec_vit and test with the v3 generator.
+`--model` picks the generator as the JAX package's does
+(`_MODEL_DEFAULT_G`): dec_vit and test run --model_G, the other five their
+own spec.
 """
 
 from __future__ import annotations
@@ -30,24 +33,39 @@ from .inference_utils import chop_forward, self_ensemble_x8
 from .registry import generator_spec
 from ..train.checkpoint import latest_epoch, load_net
 
-_VISUAL = {"d": "fake_A", "r": "fake_R", "s": "fake_S"}
+# --model -> its generator; None: --model_G (JAX dehazing_model.py:31-39)
+_MODEL_DEFAULT_G = {
+    "dec_vit": None,
+    "decr_vit": "iidr_hlgvit_crs_gd4",
+    "decs_vit": "iids_hlgvit_crs_gd4",
+    "decn_vit": "iidn_hlgvit_crs_gd4",
+    "vit": "ipt",
+    "dec_mgvit": "dec_ipt",
+    "test": None,
+}
+
+_VISUAL = {"d": "fake_A", "r": "fake_R", "s": "fake_S", "dh": "fake_A_refined"}
 
 
 class DehazingModel:
     def __init__(self, cfg, device: torch.device):
-        if cfg.model not in ("dec_vit", "test"):
+        if cfg.model not in _MODEL_DEFAULT_G:
             raise NotImplementedError(
-                f"--model {cfg.model}: the port runs dec_vit and test "
-                "(ROADMAP Queue A items 6 and 8)")
+                f"--model {cfg.model}: the port runs "
+                f"{sorted(_MODEL_DEFAULT_G)}")
         self.cfg = cfg
         self.device = device
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
-        self.spec = generator_spec(cfg.model_G, cfg)
+        self.spec = generator_spec(_MODEL_DEFAULT_G[cfg.model] or cfg.model_G,
+                                   cfg)
         self.net = Generator(self.spec)
-        # --out_all keeps only fake_A (ref test.py:47-55); the generator
-        # then skips the work only R and S outputs need
-        self.branches = "d" if cfg.out_all else "rsd"
+        # --out_all keeps only fake_A (ref test.py:47-55); a generator with
+        # a D branch then skips the work only the other outputs need
+        self.d_only = bool(cfg.out_all and "d" in self.spec.branches)
+        self.branches = "d" if self.d_only else None
+        self.outputs = (["d"] if self.d_only else list(self.spec.branches)
+                        + (["dh"] if self.spec.xdh else []))
         self._u8_io = not (getattr(cfg, "chop", False)
                            or getattr(cfg, "self_ensemble", False))
         self.real_B = None
@@ -97,7 +115,7 @@ class DehazingModel:
 
                 def fwd(x, _base=base):
                     return {b: self_ensemble_x8(lambda v, _b=b: _base(v)[_b], x)
-                            for b in self.branches}
+                            for b in self.outputs}
             if getattr(cfg, "chop", False):
                 tile, base = cfg.input_size(), fwd
 
@@ -106,11 +124,15 @@ class DehazingModel:
                         return _base(x)
                     return {b: chop_forward(lambda v, _b=b: _base(v)[_b], x,
                                             tile, cfg.chop_overlap)
-                            for b in self.branches}
+                            for b in self.outputs}
             out = fwd(self.real_B)
-        visuals = {} if self.branches == "d" else {"real_B": _host(self.real_B)}
+        visuals = {} if self.d_only else {"real_B": _host(self.real_B)}
         for b, v in out.items():
-            visuals[_VISUAL[b]] = _host(v)
+            # dec_ipt: the refined output is the dehazed image
+            # (ref dec_mgvit_model.py:90, JAX dehazing_model.py:163-168)
+            name = ("fake_A" if b == "dh" and "d" not in self.spec.branches
+                    else _VISUAL[b])
+            visuals[name] = _host(v)
         return visuals
 
     def get_image_paths(self):

@@ -1,5 +1,5 @@
-"""HLG-ViT IID generator, plain path of the v3 variant (counterpart of
-cfen_vit_tpu/models/generator.py).
+"""The HLG-ViT IID generator, every `--model_G` spec (counterpart of
+cfen_vit_tpu/models/generator.py, its plain path).
 
 Canonical v3 at a 512x512 input (n_feats 24, patch_size 32, patch_dim 2,
 loadSize 256):
@@ -16,14 +16,29 @@ loadSize 256):
          (+ActNorm) + ReLU, reflect-pad 3 + conv7x7 + tanh (K3,
          ops/cuda_tail.py); S has 1 channel and no tail norm
 
-Module names follow the reference state_dict.  The JAX package's TPU-only
-phase-space forms (ops/phase_space.py) are not ported: they re-express this
-same plain path for the TPU's lane layout.
+The other 17 specs (models/registry.py) switch parts of this on GenSpec,
+as the JAX generator does: a full-resolution trunk (no ds_conv_e01 or
+us_conv_d01; the trunk is the stem's output, without a norm); LViT-only,
+GViT-only or ResnetBlock (cnn) levels; add fusion; InstanceNorm lgcat,
+tails and sk; the D skip as sk on cat(u, r, s) (cat3), on cat(u, enc)
+(enc), u + enc (res) or a 1x1 conv + InstanceNorm on cat(u, partner)
+(cat_partner); one encoder per branch (dec_ipt); the SpatialPyramid
+refiner of the branch outputs (xdh, output "dh"); and the reference
+quirks the JAX GenSpec documents (d02_us_from_s, s_dec_from_r_enc,
+s_dec1_ru_zero).  Module names follow each family's reference
+state_dict (JAX interop/torch_import.py); the `*_name` functions below
+hold the naming and interop/from_jax.py reads them too.  The JAX
+package's TPU-only phase-space forms (ops/phase_space.py) are not ported:
+they re-express this same plain path for the TPU's lane layout.
 
-With branches="d" (test --out_all) the forward runs only what fake_A needs:
-the R/S decoders stop after their level-2 upsample, whose output D's CFS
-reads, and the R/S level-1 blocks and tails are skipped.  (JAX leaves that
-pruning to XLA's dead-code elimination; eager PyTorch has to do it.)
+With branches="d" (test --out_all) the forward runs only what fake_A
+needs: a non-D branch stops after its level-2 upsample (D reads its
+upsamples, and with d02_us_from_s S's level-2 output), the non-D tails
+and the refiner are skipped.  (JAX leaves that pruning to XLA's
+dead-code elimination; eager PyTorch has to do it.)
+
+The first forward of a model with uninitialised ActNorms is the JAX
+ANCtx init pass (ops/nn.py actnorm_init_pass).
 
 For training, `remat` checkpoints the regions the JAX generator_apply
 checkpoints (torch.utils.checkpoint, non-reentrant): "level" every
@@ -36,8 +51,10 @@ rejected by measurement there and are not ported.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -45,7 +62,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import cuda_stem, cuda_tail
-from ..ops.nn import ActNorm2d, conv_transpose_up2, instance_norm
+from ..ops.nn import (ActNorm2d, InstanceNorm, ResnetBlock, actnorm_init_pass,
+                      conv_transpose_up2, instance_norm)
+from ..ops.resize import resize_align_corners
 from ..ops.tiles import join_tiles, split_tiles
 from ..ops.patch import fold_tokens, unfold_tokens
 from .vit import ViT, ViTSpec
@@ -53,8 +72,7 @@ from .vit import ViT, ViTSpec
 
 @dataclass(frozen=True)
 class GenSpec:
-    """The JAX package's GenSpec, field for field (see its docstrings).
-    Only the v3 structure is built here; see `check_ported`."""
+    """The JAX package's GenSpec, field for field (see its docstrings)."""
     name: str = "iid_hlgvit_crs_gd4_cfs_v3"
     n_feats: int = 24
     n_colors: int = 3
@@ -132,27 +150,100 @@ class GenSpec:
             global_pools=self.global_pools, shrink=1)
 
 
-# geometry and transformer flags are free; every other field is a variant
-# switch and must keep its v3 value
-_FREE = {"name", "n_feats", "n_colors", "patch_size", "patch_dim",
-         "num_heads", "num_layers", "hidden_dim_ratio", "load_size",
-         "no_norm", "no_mlp", "pos_every", "no_pos"}
 REMAT_MODES = ("none", "level", "branch")
 
 
-def check_ported(spec: GenSpec) -> None:
-    v3 = GenSpec()
-    diff = [f.name for f in fields(GenSpec) if f.name not in _FREE
-            and getattr(spec, f.name) != getattr(v3, f.name)]
-    if diff:
-        raise NotImplementedError(
-            f"--model_G {spec.name}: only the v3 structure is ported; this "
-            f"variant differs in {diff} (ROADMAP Queue A item 6)")
+# -- reference module names (JAX interop/torch_import.py) --------------------
+
+def enc_suffix(spec: GenSpec, b: str) -> str:
+    """The suffix of the encoder branch `b` decodes from: dec_ipt runs R's
+    encoder unsuffixed and S's with an `s`; the others share one."""
+    return ("" if b == "r" else b) if spec.separate_encoders else ""
 
 
-def _conv_an(cin: int, cout: int) -> nn.Sequential:
-    """1x1 conv + ActNorm (reference `[conv, ActNorm2d]` Sequential)."""
-    return nn.Sequential(nn.Conv2d(cin, cout, 1), ActNorm2d(cout))
+def encoders(spec: GenSpec) -> list:
+    return ([enc_suffix(spec, b) for b in spec.branches]
+            if spec.separate_encoders else [""])
+
+
+def dec_vit_suffix(spec: GenSpec, b: str) -> str:
+    """Decoder ViT and ipt upsample suffix: single-decoder files (ipt
+    family, iidn) name them without a branch letter, dec_ipt names R's
+    unsuffixed."""
+    if spec.separate_encoders:
+        return enc_suffix(spec, b)
+    return "" if spec.ipt_style or spec.branches == "d" else b
+
+
+def level_names(spec: GenSpec, encoder: bool, lvl: int, sfx: str) -> tuple:
+    """(cnn blocks, LViT, GViT, lgcat) of one level; `sfx` is the encoder's
+    suffix, or the decoder's branch letter."""
+    if encoder:
+        return (f"encoder_0{lvl}{sfx}", f"localvit_encoder_0{lvl}{sfx}",
+                f"globalvit_encoder_0{lvl}{sfx}", f"lgcat_conv_e0{lvl}{sfx}")
+    v = dec_vit_suffix(spec, sfx)
+    return (f"decoder_0{lvl}{sfx}", f"localvit_decoder_0{lvl}{v}",
+            f"globalvit_decoder_0{lvl}{v}", f"lgcat_conv_d0{lvl}{sfx}")
+
+
+def us_name(spec: GenSpec, lvl: int, b: str) -> str:
+    if spec.ipt_style:      # ref ipt.py:189-192, dec_ipt.py:260-268
+        return f"us_conv_e0{lvl}{dec_vit_suffix(spec, b)}"
+    return f"us_conv_d0{lvl}{b}"
+
+
+def has_sk(spec: GenSpec, b: str) -> bool:
+    """Whether branch `b` has sk_conv_d03/d02: all but the res skip and
+    cfs's D."""
+    return spec.d_skip != "res" and (b != "d" or spec.d_skip != "cfs")
+
+
+def tail_branches(spec: GenSpec) -> list:
+    """Branches with a tail of their own: D uses R's where they share."""
+    return [b for b in spec.branches
+            if not (spec.shared_tails and b == "d" and "r" in spec.branches)]
+
+
+def tail_of(spec: GenSpec, b: str) -> str:
+    """The branch whose tail `b` runs through."""
+    return b if b in tail_branches(spec) else "r"
+
+
+def tail_name(spec: GenSpec, b: str) -> str:
+    if spec.ipt_style and not spec.separate_encoders:
+        return "tail"
+    if spec.separate_encoders or spec.shared_tails or spec.branches == "d":
+        return "tail_gray" if b == "s" else "tail_color"
+    return {"r": "tail_R", "s": "tail_S", "d": "tail_D"}[b]
+
+
+def tail_norm(spec: GenSpec, b: str) -> Optional[str]:
+    """The norm in the tail's slot 2: "actnorm", "instance" or None (the
+    1-channel S tail of most files has none)."""
+    return spec.tail_norm if (b != "s" or spec.s_tail_norm) else None
+
+
+# -- modules -------------------------------------------------------------
+
+class Conv1x1T(nn.ConvTranspose2d):
+    """A 1x1 stride-1 conv the reference declares as ConvTranspose2d (the
+    sk convs of the lvit/gvit/vit files and cat_partner): weight [in, out,
+    1, 1] as in its state_dict.  The JAX package holds it as a conv and
+    draws it with a conv's fan-in (`in_channels`)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 1)
+
+
+def _sk(spec: GenSpec, b: str, cin: int, cout: int) -> nn.Sequential:
+    """The sk_conv Sequential: 1x1 conv (or Conv1x1T) + ActNorm; the
+    cat_partner D skip is a Conv1x1T alone (its InstanceNorm has no
+    state)."""
+    if b == "d" and spec.d_skip == "cat_partner":
+        return nn.Sequential(Conv1x1T(cin, cout))
+    conv = (Conv1x1T(cin, cout) if spec.sk_conv_transposed
+            else nn.Conv2d(cin, cout, 1))
+    return nn.Sequential(conv, ActNorm2d(cout))
 
 
 class ResBlock(nn.Module):
@@ -185,87 +276,181 @@ class CFSM2G(nn.Module):
         return d + r * sig1 + s * sig2
 
 
-def _tail(c: int, out_c: int, norm: bool) -> nn.Sequential:
-    """Reference tail slots: [0] upsampler (a no-op at v3), conv3x3,
-    ActNorm (R/D only), ReLU, ReflectionPad(3), conv7x7, Tanh."""
+_POOLS = ((32, "conv1010"), (16, "conv1020"), (8, "conv1030"),
+          (4, "conv1040"), (2, "conv1050"))
+
+
+class SpatialPyramid(nn.Module):
+    """The xdh refiner (JAX spatial_pyramid_apply): two 3x3 convs to 32
+    channels with leaky ReLU 0.2, average pools 32/16/8/4/2 each through a
+    1x1 conv to 16 and an align-corners bilinear resize back, the concat
+    (pooled maps first, the 32-channel map last), a 3x3 conv to RGB and
+    tanh, applied twice as the reference does (its refine3 ends in Tanh and
+    its forward wraps that in tanh again)."""
+
+    def __init__(self, cin: int):
+        super().__init__()
+        self.refine1 = nn.Conv2d(cin, 32, 3, padding=1)
+        self.refine2 = nn.Conv2d(32, 32, 3, padding=1)
+        for _, name in _POOLS:
+            self.add_module(name, nn.Conv2d(32, 16, 1))
+        self.refine3 = nn.Sequential(
+            nn.Conv2d(32 + 16 * len(_POOLS), 3, 3, padding=1), nn.Tanh())
+
+    def forward(self, x):
+        d = F.leaky_relu(self.refine1(x), 0.2)
+        d = F.leaky_relu(self.refine2(d), 0.2)
+        h, w = d.shape[2:]
+        outs = [resize_align_corners(
+            F.leaky_relu(getattr(self, name)(F.avg_pool2d(d, k)), 0.2), h, w)
+            for k, name in _POOLS]
+        return torch.tanh(self.refine3(torch.cat(outs + [d], dim=1)))
+
+
+def _tail(c: int, out_c: int, norm: Optional[str]) -> nn.Sequential:
+    """Reference tail slots: [0] upsampler (a no-op here), conv3x3, the
+    norm (ActNorm or InstanceNorm, where the spec has one), ReLU,
+    ReflectionPad(3), conv7x7, Tanh."""
     slots = [nn.Identity(), nn.Conv2d(c, c, 3, padding=1)]
-    slots += [ActNorm2d(c)] if norm else []
+    if norm is not None:
+        slots.append(ActNorm2d(c) if norm == "actnorm" else InstanceNorm())
     slots += [nn.ReLU(), nn.ReflectionPad2d(3), nn.Conv2d(c, out_c, 7),
               nn.Tanh()]
     return nn.Sequential(nn.Sequential(*slots))
 
 
 class Generator(nn.Module):
-    """x [B,3,H,W] in [-1,1] -> {branch: [B,out_c,H,W]} in [-1,1]."""
+    """x [B,3,H,W] in [-1,1] -> {branch: [B,out_c,H,W]} in [-1,1], with
+    "dh" [B,3,H,W] for the xdh specs."""
 
     def __init__(self, spec: GenSpec):
         super().__init__()
-        check_ported(spec)
         self.spec = spec
         nf, c0 = spec.n_feats, spec.stem_channels()
         self.head = nn.Sequential(nn.Sequential(
             nn.Conv2d(spec.n_colors, c0, 5, padding=2), ResBlock(c0)))
-        self.ds_conv_e01 = nn.Sequential(nn.Conv2d(c0, nf, 3, 2, 1))
-        for lvl in (1, 2, 3):
-            c = spec.level_channels(lvl)
-            if lvl > 1:
-                self.add_module(f"ds_conv_e0{lvl}",
-                                nn.Sequential(nn.Conv2d(c // 2, c, 3, 2, 1)))
-            self._add_level("encoder", "e", lvl, "", encoder=True)
-        for b in "rsd":
+        if spec.half_res_trunk:
+            self.ds_conv_e01 = nn.Sequential(nn.Conv2d(c0, nf, 3, 2, 1))
+        for e in encoders(spec):
+            for lvl in (1, 2, 3):
+                c = spec.level_channels(lvl)
+                if lvl > 1:
+                    ds = [nn.Conv2d(c // 2, c, 3, 2, 1)]
+                    if spec.ds_norm == "actnorm":
+                        ds.append(ActNorm2d(c))
+                    self.add_module(f"ds_conv_e0{lvl}{e}", nn.Sequential(*ds))
+                self._add_level(True, lvl, e)
+        for b in spec.branches:
             for lvl in (3, 2, 1):
-                self._add_level("decoder", "d", lvl, b, encoder=False)
-            self.add_module(f"us_conv_d03{b}",
-                            nn.Sequential(conv_transpose_up2(4 * nf, 2 * nf)))
-            self.add_module(f"us_conv_d02{b}", nn.Sequential(
-                conv_transpose_up2(2 * nf, nf), ActNorm2d(nf)))
-            self.add_module(f"us_conv_d01{b}", nn.Sequential(
-                conv_transpose_up2(nf, c0), ActNorm2d(c0)))
-            if b in "rs":
-                self.add_module(f"sk_conv_d03{b}", _conv_an(4 * nf, 2 * nf))
-                self.add_module(f"sk_conv_d02{b}", _conv_an(2 * nf, nf))
-        self.cfsm2g_d03d = nn.Sequential(CFSM2G(2 * nf))
-        self.cfsm2g_d02d = nn.Sequential(CFSM2G(nf))
-        self.tail_R = _tail(c0, spec.n_colors, norm=True)
-        self.tail_S = _tail(c0, 1, norm=False)
-        self.tail_D = _tail(c0, spec.n_colors, norm=True)
+                self._add_level(False, lvl, b)
+            self.add_module(us_name(spec, 3, b), nn.Sequential(
+                conv_transpose_up2(4 * nf, 2 * nf)))
+            us2 = [conv_transpose_up2(2 * nf, nf)]
+            if not spec.ipt_style:
+                us2.append(ActNorm2d(nf))
+            self.add_module(us_name(spec, 2, b), nn.Sequential(*us2))
+            if spec.half_res_trunk:
+                self.add_module(f"us_conv_d01{b}", nn.Sequential(
+                    conv_transpose_up2(nf, c0), ActNorm2d(c0)))
+            if has_sk(spec, b):
+                # the level's upsample with the encoder skip, or for cat3's
+                # D with R's and S's upsamples
+                parts = 3 if b == "d" and spec.d_skip == "cat3" else 2
+                for lvl in (3, 2):
+                    c = spec.level_channels(lvl - 1)
+                    self.add_module(f"sk_conv_d0{lvl}{b}",
+                                    _sk(spec, b, parts * c, c))
+        if spec.d_skip == "cfs":
+            self.cfsm2g_d03d = nn.Sequential(CFSM2G(2 * nf))
+            self.cfsm2g_d02d = nn.Sequential(CFSM2G(nf))
+        for b in tail_branches(spec):
+            self.add_module(tail_name(spec, b), _tail(
+                c0, 1 if b == "s" else spec.n_colors, tail_norm(spec, b)))
+        if spec.xdh:   # the image and every output: iidr 9, iids 7
+            self.sp = SpatialPyramid(3 + sum(
+                1 if b == "s" else spec.n_colors for b in spec.branches))
 
-    def _add_level(self, role, tag, lvl, b, encoder):
-        c = self.spec.level_channels(lvl)
-        sfx = f"0{lvl}{b}"
-        self.add_module(f"localvit_{role}_{sfx}", ViT(self.spec.lvit_spec(lvl)))
-        self.add_module(f"globalvit_{role}_{sfx}",
-                        ViT(self.spec.gvit_spec(lvl, encoder)))
-        self.add_module(f"lgcat_conv_{tag}{sfx}", _conv_an(2 * c, c))
+    def _add_level(self, encoder: bool, lvl: int, sfx: str):
+        spec = self.spec
+        c = spec.level_channels(lvl)
+        cnn, lname, gname, cname = level_names(spec, encoder, lvl, sfx)
+        if spec.cnn:
+            self.add_module(cnn, nn.Sequential(ResnetBlock(c), ResnetBlock(c)))
+            return
+        if spec.use_local:
+            self.add_module(lname, ViT(spec.lvit_spec(lvl)))
+        if spec.use_global:
+            self.add_module(gname, ViT(spec.gvit_spec(lvl, encoder)))
+        if spec.use_local and spec.use_global and spec.fusion == "cat":
+            lg = [nn.Conv2d(2 * c, c, 1)]
+            if spec.lgcat_norm == "actnorm":
+                lg.append(ActNorm2d(c))
+            self.add_module(cname, nn.Sequential(*lg))
 
-    def _level(self, x, role, tag, lvl, b=""):
-        """JAX _level: local + global ViT, cat, 1x1 conv + ActNorm + ReLU,
-        plus the level's input."""
-        sfx = f"0{lvl}{b}"
-        lvit = getattr(self, f"localvit_{role}_{sfx}")
-        gvit = getattr(self, f"globalvit_{role}_{sfx}")
-        lgcat = getattr(self, f"lgcat_conv_{tag}{sfx}")
-        return F.relu(lgcat(torch.cat([self._local_vit(lvit, x), gvit(x)],
-                                      dim=1))) + x
+    def _level(self, x, encoder: bool, lvl: int, sfx: str):
+        """JAX _level: the level's blocks on x, fused, plus x."""
+        spec = self.spec
+        cnn, lname, gname, cname = level_names(spec, encoder, lvl, sfx)
+        if spec.cnn:
+            return getattr(self, cnn)(x) + x
+        lv = (self._local_vit(getattr(self, lname), x) if spec.use_local
+              else None)
+        if (lv is not None and spec.s_dec1_ru_zero and not encoder
+                and lvl == 1 and sfx == "s"):
+            # dec_ipt quirk: the S decoder's level-1 local map keeps a zero
+            # top-right quadrant (JAX _level, GenSpec.s_dec1_ru_zero)
+            lv = lv.clone()
+            lv[:, :, :lv.shape[2] // 2, lv.shape[3] // 2:] = 0
+        gv = getattr(self, gname)(x) if spec.use_global else None
+        if lv is None or gv is None:
+            return (gv if lv is None else lv) + x
+        if spec.fusion != "cat":
+            return lv + gv + x
+        y = getattr(self, cname)(torch.cat([lv, gv], dim=1))
+        if spec.lgcat_norm != "actnorm":
+            y = instance_norm(y)
+        return F.relu(y) + x
 
     def _local_vit(self, lvit: ViT, x):
-        """JAX _local_vit: the shared-weight LViT on every tile, batched."""
+        """JAX _local_vit: the shared-weight LViT on every tile, batched;
+        v5's shrink and extend on the whole map around it."""
         ps, pd = self.spec.patch_size, lvit.spec.patch_dim
         b, _, h, w = x.shape
+        x = lvit.bottleneck("conv_shrink", x)
         t = lvit.tokens(unfold_tokens(split_tiles(x, ps), pd))
-        return join_tiles(fold_tokens(t, pd, ps, ps), b, h, w)
+        return lvit.bottleneck("conv_extend",
+                               join_tiles(fold_tokens(t, pd, ps, ps), b, h, w))
 
     def _upsample(self, x, lvl, b):
-        """ConvTranspose2d(k4, s2, p1), then InstanceNorm (level 3) or the
-        Sequential's ActNorm (level 2), then ReLU."""
-        u = getattr(self, f"us_conv_d0{lvl}{b}")(x)
-        return F.relu(instance_norm(u) if lvl == 3 else u)
+        """ConvTranspose2d(k4, s2, p1), then InstanceNorm (level 3, and
+        both levels of the ipt family) or the Sequential's ActNorm, then
+        ReLU."""
+        u = getattr(self, us_name(self.spec, lvl, b))(x)
+        return F.relu(instance_norm(u) if lvl == 3 or self.spec.ipt_style
+                      else u)
 
-    def _tail_out(self, tail: nn.Sequential, t):
-        """conv3x3 (+ActNorm) + ReLU, then the K3 epilogue."""
-        slots = tail[0]
+    def _skip(self, b, lvl, u, enc_feat, us):
+        """The decoder's fusion of its level-`lvl` upsample (JAX
+        decode_branch)."""
+        spec = self.spec
+        if b == "d" and spec.d_skip == "cfs":
+            cfs = getattr(self, f"cfsm2g_d0{lvl}d")[0]
+            return cfs(u, us["r", lvl], us["s", lvl])
+        if spec.d_skip == "res":
+            return u + enc_feat
+        sk = getattr(self, f"sk_conv_d0{lvl}{b}")
+        if b == "d" and spec.d_skip == "cat_partner":
+            pb = "r" if "r" in spec.branches else "s"
+            return F.relu(instance_norm(sk(torch.cat([u, us[pb, lvl]], dim=1))))
+        parts = ([u, us["r", lvl], us["s", lvl]]
+                 if b == "d" and spec.d_skip == "cat3" else [u, enc_feat])
+        return F.relu(sk(torch.cat(parts, dim=1)))
+
+    def _tail_out(self, b, t):
+        """conv3x3 (+norm) + ReLU, then the K3 epilogue."""
+        slots = getattr(self, tail_name(self.spec, tail_of(self.spec, b)))[0]
         t2 = slots[1](t)
-        if isinstance(slots[2], ActNorm2d):
+        if isinstance(slots[2], (ActNorm2d, InstanceNorm)):
             t2 = slots[2](t2)
         conv7 = slots[-2]
         return cuda_tail.tail_epilogue(F.relu(t2), conv7.weight, conv7.bias)
@@ -274,33 +459,48 @@ class Generator(nn.Module):
         return all(m.ready() for m in self.modules()
                    if isinstance(m, ActNorm2d))
 
-    def _decode_branch(self, b, enc, us, full, level):
-        """Levels 3, 2 (and 1 if `full`) of one decoder branch; `us` holds
-        the R/S upsamples D's CFS reads.  Returns (level-1 output or None,
-        {3: upsample, 2: upsample})."""
-        cur, us_b = enc[3], {}
+    def _decode_branch(self, b, cur, encs, us, s2, full, level):
+        """Levels 3, 2 (and 1 if `full`) of one decoder branch.  encs: the
+        encoder features its skips read {2: ..., 1: ...}; us: the R/S
+        upsamples D reads; s2: S's level-2 output under d02_us_from_s.
+        Returns (level-1 output or None, {3: upsample, 2: upsample},
+        level-2 output)."""
+        us_b, l2 = {}, None
         for lvl in (3, 2):
-            cur = level(cur, "decoder", "d", lvl, b)
-            u = us_b[lvl] = self._upsample(cur, lvl, b)
-            if b == "d":
-                cfs = getattr(self, f"cfsm2g_d0{lvl}d")[0]
-                cur = cfs(u, us["r", lvl], us["s", lvl])
-            elif full or lvl == 3:
-                sk = getattr(self, f"sk_conv_d0{lvl}{b}")
-                cur = F.relu(sk(torch.cat([u, enc[lvl - 1]], dim=1)))
-        d1 = level(cur, "decoder", "d", 1, b) if full else None
-        return d1, us_b
+            cur = level(cur, False, lvl, b)
+            if lvl == 2:
+                l2 = cur
+            # d02_us_from_s: D's level-2 upsample reads S's level-2 output
+            u = us_b[lvl] = self._upsample(
+                s2 if s2 is not None and lvl == 2 else cur, lvl, b)
+            if full or lvl == 3:
+                cur = self._skip(b, lvl, u, encs[lvl - 1], us)
+        d1 = level(cur, False, 1, b) if full else None
+        return d1, us_b, l2
 
-    def forward(self, x: torch.Tensor, branches: str = "rsd",
+    def forward(self, x: torch.Tensor, branches: Optional[str] = None,
                 remat: str = "none"):
-        if branches not in ("rsd", "d"):
-            raise ValueError(f"branches must be 'rsd' or 'd', got {branches!r}")
+        """`branches` None (or the spec's) runs every output; "d" only
+        what fake_A needs."""
+        spec = self.spec
+        d_only = branches == "d" and spec.branches != "d"
+        if branches not in (None, spec.branches) and not d_only:
+            raise ValueError(f"branches must be {spec.branches!r} or 'd' "
+                             f"for {spec.name}, got {branches!r}")
+        if d_only and "d" not in spec.branches:
+            raise ValueError(f"{spec.name} has no D branch ({spec.branches})")
         if remat not in REMAT_MODES:
             raise NotImplementedError(
                 f"remat mode {remat!r}: the port has {REMAT_MODES} (the JAX "
                 "modes level_dots and vit were rejected by measurement)")
-        if remat != "none" and not self.actnorms_ready():
+        init = not self.actnorms_ready()
+        if init:
             remat = "none"      # the init pass sees real statistics
+        with actnorm_init_pass(self) if init else contextlib.nullcontext():
+            return self._forward(x, d_only, remat)
+
+    def _forward(self, x, d_only, remat):
+        spec = self.spec
 
         def ckpt(fn, *args):
             return checkpoint(fn, *args, use_reentrant=False)
@@ -311,32 +511,47 @@ class Generator(nn.Module):
         xf = cuda_stem.fused_stem(x.contiguous(), conv5.weight, conv5.bias,
                                   res[0].weight, res[0].bias, res[2].weight,
                                   res[2].bias)
-        xf = F.relu(instance_norm(self.ds_conv_e01(xf)))
+        if spec.half_res_trunk:
+            xf = F.relu(instance_norm(self.ds_conv_e01(xf)))
 
-        enc, cur = {}, xf
-        for lvl in (1, 2, 3):
-            if lvl > 1:
-                cur = F.relu(instance_norm(
-                    getattr(self, f"ds_conv_e0{lvl}")(cur)))
-            cur = enc[lvl] = level(cur, "encoder", "e", lvl)
+        enc = {}
+        for e in encoders(spec):
+            cur, enc[e] = xf, {}
+            for lvl in (1, 2, 3):
+                if lvl > 1:
+                    cur = getattr(self, f"ds_conv_e0{lvl}{e}")(cur)
+                    if spec.ds_norm != "actnorm":
+                        cur = instance_norm(cur)
+                    cur = F.relu(cur)
+                cur = enc[e][lvl] = level(cur, True, lvl, e)
 
-        us, d1 = {}, {}
-        for b in "rsd":
-            full = b in branches
+        us, d1, l2 = {}, {}, {}
+        order = [b for b in "rsd" if b in spec.branches]
+        for b in order:
+            encs = enc[enc_suffix(spec, b)]
+            # dec_ipt quirk: S decodes from R's level 3 (GenSpec)
+            cur = (enc[enc_suffix(spec, "r")][3]
+                   if b == "s" and spec.s_dec_from_r_enc else encs[3])
+            s2 = l2.get("s") if b == "d" and spec.d02_us_from_s else None
+            full = not d_only or b == "d"
             if remat == "branch":
-                out_b, us_b = ckpt(self._decode_branch, b, enc, us, full,
-                                   self._level)
+                out_b, us_b, l2[b] = ckpt(self._decode_branch, b, cur, encs,
+                                          us, s2, full, self._level)
             else:
-                out_b, us_b = self._decode_branch(b, enc, us, full, level)
+                out_b, us_b, l2[b] = self._decode_branch(
+                    b, cur, encs, us, s2, full, level)
             us.update({(b, lvl): u for lvl, u in us_b.items()})
             if full:
                 d1[b] = out_b
 
         out = {}
         for b in d1:
-            t = getattr(self, f"us_conv_d01{b}")(d1[b] + xf)
-            out[b] = self._tail_out(getattr(self, f"tail_{b.upper()}"),
-                                    F.relu(t))
+            t = d1[b] if spec.ipt_style else d1[b] + xf
+            if spec.half_res_trunk:
+                t = F.relu(getattr(self, f"us_conv_d01{b}")(t))
+            out[b] = self._tail_out(b, t)
+        if spec.xdh and not d_only:
+            out["dh"] = self.sp(torch.cat([x] + [out[b] for b in order], dim=1))
         return out
 
 
@@ -349,8 +564,10 @@ def init_weights(net: Generator, gen: torch.Generator) -> Generator:
     for m in net.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             # torch counts fan_in as weight.size(1) * receptive field; for
-            # ConvTranspose2d that is out-channels * k * k, as in JAX
-            fan_in = m.weight[0].numel()
+            # ConvTranspose2d that is out-channels * k * k, as in JAX, but
+            # a Conv1x1T is a conv there (fan_in = its input channels)
+            fan_in = (m.in_channels if isinstance(m, Conv1x1T)
+                      else m.weight[0].numel())
             m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
             if m.bias is not None:
                 m.bias.zero_()

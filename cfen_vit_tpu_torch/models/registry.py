@@ -1,8 +1,8 @@
 """`--model_G` registry (counterpart of cfen_vit_tpu/models/registry.py).
 
-The same names and variant switches as the JAX package, so a spec resolves
-the same way in both; models/generator.py builds only the v3 structure and
-raises NotImplementedError for the others (ROADMAP Queue A item 6).
+The same names and variant switches as the JAX package, field for field,
+so a spec resolves the same way in both (tests/test_torch_port_generator.py
+holds them equal); models/generator.py builds every one of them.
 """
 
 from __future__ import annotations

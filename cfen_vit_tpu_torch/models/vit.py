@@ -6,7 +6,10 @@ reference's (LViT/GViT, TransformerEncoder(Layer), nn.MultiheadAttention
 with bias=False), so `localvit_encoder_01.encoder.layers.0.self_attn.
 in_proj_weight` and friends load from a reference checkpoint as they are.
 The reference's never-called TransformerDecoder and query_embed are not
-built (interop/torch_import.py drops their tensors).
+built (interop/torch_import.py drops their tensors).  The v5 variant
+shrinks the channels a block tokenises by `shrink` with a 1x1 conv +
+ActNorm + ReLU (`conv_shrink`) and extends them back after it
+(`conv_extend`), JAX vit_shrink_apply.
 
 The attention core goes through ops/cuda_attn.py (K1); the projections,
 the MLPs and the norms stay F.linear / nn.LayerNorm, as the JAX package
@@ -24,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import cuda_attn, cuda_vit
+from ..ops.nn import ActNorm2d
 from ..ops.patch import fold_tokens, unfold_tokens
 from ..ops.resize import avg_pool2, upsample_bilinear2
 
@@ -49,8 +53,13 @@ class ViTSpec:
         return (self.img_dim // self.patch_dim) ** 2
 
     @property
+    def inner_channels(self) -> int:
+        """Channels tokenised (v5 shrinks them by `shrink` first)."""
+        return self.num_channels // self.shrink
+
+    @property
     def flatten_dim(self) -> int:
-        return self.patch_dim * self.patch_dim * self.num_channels
+        return self.patch_dim * self.patch_dim * self.inner_channels
 
 
 class SelfAttention(nn.Module):
@@ -108,16 +117,20 @@ class ViT(nn.Module):
 
     `tokens` is the token pipeline on [N, S, flatten]; `forward` applies the
     block to an NCHW map, pooling before and upsampling after for a GViT.
-    The LViT's tiling is the generator's (models/generator.py)."""
+    The LViT's tiling is the generator's (models/generator.py), which also
+    applies an LViT's shrink and extend on the whole map (`bottleneck`):
+    they are pointwise, so they commute with the tiling."""
 
     def __init__(self, spec: ViTSpec):
         super().__init__()
-        if spec.shrink > 1:
-            raise NotImplementedError(
-                "the v5 channel bottleneck inside the ViT is not ported yet "
-                "(ROADMAP Queue A item 6)")
         self.spec = spec
         e = spec.embedding_dim
+        if spec.shrink > 1:
+            c, c_sh = spec.num_channels, spec.inner_channels
+            self.conv_shrink = nn.Sequential(nn.Conv2d(c, c_sh, 1),
+                                             ActNorm2d(c_sh))
+            self.conv_extend = nn.Sequential(nn.Conv2d(c_sh, c, 1),
+                                             ActNorm2d(c))
         if not spec.no_mlp:
             self.linear_encoding = nn.Linear(spec.flatten_dim, e)
             # reference slots: Linear, ReLU, Dropout(0), Linear
@@ -157,12 +170,21 @@ class ViT(nn.Module):
             t = self.mlp_head(t) + t
         return t
 
+    def bottleneck(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """v5's 1x1 conv + ActNorm + ReLU, `name` conv_shrink or
+        conv_extend; the identity for a block without the shrink."""
+        if self.spec.shrink == 1:
+            return x
+        return F.relu(getattr(self, name)(x))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for _ in range(self.spec.global_pools):
             x = avg_pool2(x)
+        x = self.bottleneck("conv_shrink", x)
         h, w = x.shape[2:]
         t = self.tokens(unfold_tokens(x, self.spec.patch_dim))
-        x = fold_tokens(t, self.spec.patch_dim, h, w)
+        x = self.bottleneck("conv_extend",
+                            fold_tokens(t, self.spec.patch_dim, h, w))
         for _ in range(self.spec.global_pools):
             x = upsample_bilinear2(x)
         return x

@@ -9,15 +9,21 @@ are (interop/from_jax.py applies the JAX package's transposes):
   conv_transpose2d k4 s2 p1  nn.ConvTranspose2d  weight [in, out, kh, kw]
   linear                     nn.Linear           weight [out, in]
   layer_norm (eps 1e-5)      nn.LayerNorm
-  reflection_pad             F.pad(mode="reflect")
+  reflection_pad             F.pad(mode="reflect") / nn.ReflectionPad2d
   relu                       F.relu / nn.ReLU
+  leaky_relu (slope 0.2)     F.leaky_relu(x, 0.2)
 
 What PyTorch has no module for lives below: the instance norm with the
-JAX package's f32 one-pass statistics, and ActNorm2d with its
-data-dependent initialisation.
+JAX package's f32 one-pass statistics (also as a parameter-free module,
+InstanceNorm, for the Sequential slots the reference fills with
+InstanceNorm2d), ActNorm2d with its data-dependent initialisation and
+the JAX init pass's semantics (`actnorm_init_pass`), and iid_cnn_crs's
+reflect-padded ResnetBlock.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -34,6 +40,15 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+class InstanceNorm(nn.Module):
+    """`instance_norm` as a module without parameters or buffers: fills a
+    reference Sequential slot (InstanceNorm2d(affine=False)) so the slots
+    after it keep their state_dict indices."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x)
+
+
 def conv_transpose_up2(cin: int, cout: int) -> nn.ConvTranspose2d:
     """The decoder's 2x upsampling conv: ConvTranspose2d(k=4, s=2, p=1)."""
     return nn.ConvTranspose2d(cin, cout, kernel_size=4, stride=2, padding=1)
@@ -47,7 +62,8 @@ class ActNorm2d(nn.Module):
     statistics) and flips `initialized` to 1 — the JAX package's `ANCtx`
     init pass (generator.py ANCtx, ops/nn.py actnorm_apply).  Modules reach
     that forward in forward order, so one pass initialises all of them.
-    An already-initialised module is left untouched.
+    An already-initialised module is left untouched, except inside
+    `actnorm_init_pass`.
     """
 
     def __init__(self, num_features: int):
@@ -58,6 +74,7 @@ class ActNorm2d(nn.Module):
         # host copy of `initialized`, so a forward does not read the device
         # buffer (a sync) more than once after each load
         self._ready = None
+        self._reinit = False    # set by actnorm_init_pass
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)
@@ -79,9 +96,44 @@ class ActNorm2d(nn.Module):
         return self._ready
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.ready():
+        if self._reinit or not self.ready():
             self._init_from(x)
             self._ready = True
         b = self.bias.to(x.dtype)[None, :, None, None]
         s = torch.exp(self.weight).to(x.dtype)[None, :, None, None]
         return (x + b) * s
+
+
+@contextlib.contextmanager
+def actnorm_init_pass(module: nn.Module):
+    """The JAX ANCtx(init=True) pass over `module`: every ActNorm2d that is
+    uninitialised on entry takes its statistics from each of its inputs
+    during the block, so a module called twice in one forward (a tail that
+    R and D share) normalises each call by that call's own batch, and the
+    last call's statistics stay, as ANCtx.merge keeps the last update of
+    a path.  A module called once behaves as outside the block."""
+    fresh = [m for m in module.modules()
+             if isinstance(m, ActNorm2d) and not m.ready()]
+    for m in fresh:
+        m._reinit = True
+    try:
+        yield
+    finally:
+        for m in fresh:
+            m._reinit = False
+
+
+class ResnetBlock(nn.Module):
+    """iid_cnn_crs's block (JAX generator.py _resblock): x + [reflect pad 1,
+    conv3x3, ActNorm, ReLU, reflect pad 1, conv3x3, ActNorm](x).  The
+    reference's `conv_block` slots, so convs sit at 1 and 5, ActNorms at
+    2 and 6."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv_block = nn.Sequential(
+            nn.ReflectionPad2d(1), nn.Conv2d(c, c, 3), ActNorm2d(c), nn.ReLU(),
+            nn.ReflectionPad2d(1), nn.Conv2d(c, c, 3), ActNorm2d(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.conv_block(x)

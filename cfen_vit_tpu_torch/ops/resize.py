@@ -3,6 +3,9 @@
   avg_pool2          <- nn.AvgPool2d(2, stride=2)
   upsample_bilinear2 <- nn.Upsample(scale_factor=2, mode='bilinear',
                         align_corners=False)
+  resize_align_corners <- models/generator.py _resize_align_corners (the
+                        SpatialPyramid's F.upsample_bilinear: bilinear,
+                        align_corners=True, a 1x1 map broadcast)
 
 The JAX package writes the exact-2x bilinear as its [1/4, 3/4] stencil with
 edge clamping; torch's own interpolate computes the same weights.
@@ -21,3 +24,8 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
 def upsample_bilinear2(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="bilinear",
                          align_corners=False)
+
+
+def resize_align_corners(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B,C,ih,iw] -> [B,C,h,w], bilinear with align_corners=True."""
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=True)

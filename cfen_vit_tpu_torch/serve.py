@@ -179,7 +179,9 @@ class Batcher:
         batch = np.stack([it[0] for it in items] + [items[-1][0]] * (padded - b))
         if self._direct:
             import torch
-            return self.model.forward_u8(torch.from_numpy(batch).to(self.model.device))["d"]
+            out = self.model.forward_u8(torch.from_numpy(batch).to(self.model.device))
+            # dec_ipt has no D branch: its dehazed image is the refined dh
+            return out["d"] if "d" in out else out["dh"]
         self.model.set_input({"B": _model_input(self.model, batch),
                               "B_paths": ["req"] * padded})
         return self.model.test(self.cfg)["fake_A"]

@@ -133,6 +133,11 @@ class GanTrainer:
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
         self.spec = generator_spec(cfg.model_G, cfg)
+        if self.spec.name != "iid_hlgvit_crs_gd4_cfs_v3":
+            raise NotImplementedError(
+                f"--model_G {self.spec.name}: the port trains the v3 "
+                "generator only; the other specs' trainers are ROADMAP "
+                "Queue A item 9")
         self.branches = {b: n for b, n in (("d", "A"), ("r", "R"), ("s", "S"))
                          if b in self.spec.branches}
         self.use_lsgan = not cfg.no_lsgan

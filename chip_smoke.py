@@ -77,7 +77,23 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      gates (2/255 against the plain path, 35 dB bf16), then 2 training
      steps per dtype through the train CLI, one batch an epoch (finite
      losses, G and D moved, K1, K3, K4 and K5's three kernels launched and
-     the recomputes run), each with its counts reset before and read after.
+     the recomputes run), each with its counts reset before and read after;
+  9. the 17 other --model_G specs (models/registry.py), each at full width
+     (n_feats 24, hidden_dim_ratio 4, patch 32, 4 heads, loadSize 256 for
+     the half-res v5 and 512 for the full-res trunk: a 512x512 input) and
+     batch 2 through DehazingModel from parse_args (its own --model where
+     it has one, e.g. dec_mgvit for dec_ipt): seeded weights, ActNorms
+     initialised on the batch, saved as .pth and loaded through setup().
+     Gates: float32 every visual (fake_A_refined too) within 2/255 of the
+     same model on the plain versions; bf16 fake_A above 35 dB against
+     float32 (a spec whose plain path in bf16 misses too, with the kernels
+     at most BF16_PLAIN_DB below it, is logged as a finding instead); the
+     --out_all fake_A within 1/255 of the all-output run's; K1 (but for
+     iid_cnn_crs), K3 and K4 launched in both dtypes; no constant image.
+     A `{"variants": ...}` line holds each spec's parameters, launches,
+     differences, PSNR and model.test() ms.  Then phase 4's inference CLI
+     with its gates for iid_hlgvit_crs_gd4_cfs (--loadSize 512) and for
+     --model dec_mgvit (dec_ipt: fake_A is the refined output, no d-only).
 
 Phases 1-5 run with K2 off (CFEN_PALLAS_VIT unset), as by default.
 The last two lines are a JSON object of the kernels' results and
@@ -846,10 +862,11 @@ def read_png(path: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
-def phase_e2e(torch, spec, tmp, tag="e2e"):
-    """The inference CLI in float32 and bfloat16 under `tmp` (kept for the
-    serve phase); returns the launch counts of each run and the bf16
-    against float32 PSNR of the fake_A PNGs.  Its lines carry `tag`."""
+def phase_e2e(torch, spec, tmp, tag="e2e", model_flag="dec_vit"):
+    """The inference CLI (`--model model_flag --model_G spec.name --out_all`) in
+    float32 and bfloat16 under `tmp` (kept for the serve phase); returns
+    the launch counts of each run and the bf16 against float32 PSNR of the
+    fake_A PNGs.  Its lines carry `tag`."""
     from cfen_vit_tpu_torch import test as cli
     from cfen_vit_tpu_torch.config import parse_args
     from cfen_vit_tpu_torch.models.dehazing_model import DehazingModel
@@ -867,15 +884,16 @@ def phase_e2e(torch, spec, tmp, tag="e2e"):
     ckpt = os.path.join(tmp, "ckpt", "smoke")
     os.makedirs(ckpt)
     torch.save(net.state_dict(), os.path.join(ckpt, "1_net_G.pth"))
-    log(tag, f"seeded v3 model, {sum(p.numel() for p in net.parameters())}"
-        " parameters, ActNorms initialised on batch 0, saved 1_net_G.pth")
+    log(tag, f"seeded {spec.name} model, "
+        f"{sum(p.numel() for p in net.parameters())} parameters, ActNorms "
+        "initialised on batch 0, saved 1_net_G.pth")
     del net
 
     def argv(dtype):
         return ["--dataroot", os.path.join(tmp, "data"), "--name", "smoke",
                 "--checkpoints_dir", os.path.join(tmp, "ckpt"),
                 "--results_dir", os.path.join(tmp, f"results_{dtype}"),
-                "--model", "dec_vit", "--dataset_mode", "dec_vit",
+                "--model", model_flag, "--dataset_mode", "dec_vit",
                 "--model_G", spec.name, "--n_feats", str(spec.n_feats),
                 "--hidden_dim_ratio", str(spec.hidden_dim_ratio),
                 "--patch_size", str(spec.patch_size),
@@ -1494,6 +1512,189 @@ def phase_defaults(torch, canonical):
     return infer, train
 
 
+VARIANT_BATCH, VARIANT_REPS = 2, 3
+# a spec whose bf16 fake_A misses 35 dB against float32 passes only where
+# its plain path in bf16 misses too, and the kernels lose at most this
+# many dB beside it: the spec's own bf16 arithmetic, logged as a finding
+BF16_PLAIN_DB = 1.0
+
+
+def _psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def _variant(torch, name, first, tmp, wrappers):
+    """One spec at full width (n_feats 24, hidden_dim_ratio 4, patch 32, 4
+    heads; loadSize 256 half-res, 512 full-res, so a 512x512 input) at
+    batch 2: seeded weights, ActNorms initialised on the batch, saved and
+    loaded through setup(); then model.test() in float32 (all outputs,
+    counted and timed, then the same model on the plain versions),
+    bfloat16 (timed) and float32 --out_all.  Returns its row, the gates it
+    missed, and a finding (a bf16 miss its plain path shares) or None."""
+    from cfen_vit_tpu_torch.config import parse_args
+    from cfen_vit_tpu_torch.models.dehazing_model import (_MODEL_DEFAULT_G,
+                                                          DehazingModel)
+    from cfen_vit_tpu_torch.models.generator import init_weights
+    from cfen_vit_tpu_torch.models.registry import generator_spec
+    from cfen_vit_tpu_torch.ops import cuda_attn, cuda_stem, cuda_tail
+    load = 256 if generator_spec(name).half_res_trunk else 512
+    # the spec's own --model where one picks it, else dec_vit and --model_G
+    model_flag = {g: m for m, g in _MODEL_DEFAULT_G.items() if g}.get(
+        name, "dec_vit")
+    argv = ["--name", name, "--checkpoints_dir", tmp, "--dataroot", tmp,
+            "--model", model_flag, "--model_G", name,
+            "--n_feats", "24", "--hidden_dim_ratio", "4", "--patch_size", "32",
+            "--num_heads", "4", "--loadSize", str(load), "--gpu_ids", "0",
+            "--which_epoch", "1"]
+
+    def model_for(*extra, build_on="cuda"):
+        """The wrapper these flags build; its generator is allocated (and
+        drawn by torch's default init) on `build_on`."""
+        cfg = parse_args(argv + list(extra), is_train=False, save_opt=False)
+        with torch.device(build_on):
+            return cfg, DehazingModel(cfg, torch.device("cuda"))
+
+    # the seeded draw comes from a CPU generator, so this one is built there
+    cfg, model = model_for(build_on="cpu")
+    if model.spec.name != name or cfg.input_size() != SIDE:
+        raise AssertionError(f"{name}: --model {cfg.model} built "
+                             f"{model.spec.name} for {cfg.input_size()} px")
+    net = init_weights(model.net, torch.Generator().manual_seed(SEED))
+    net = net.cuda().eval()
+    with torch.no_grad():   # the ActNorm init pass, every output
+        x = torch.from_numpy(first).cuda().permute(0, 3, 1, 2).contiguous()
+        net(x.float() / 127.5 - 1.0)
+    os.makedirs(os.path.join(tmp, name), exist_ok=True)
+    torch.save(net.state_dict(), os.path.join(tmp, name, "1_net_G.pth"))
+    row = {"parameters": sum(p.numel() for p in net.parameters())}
+    del net, model
+    missed, vis, launches, models = [], {}, {}, {}
+    batch = {"B": first, "B_paths": [f"im{i}" for i in range(len(first))]}
+
+    def plain_test(model):
+        """model.test() with K1, K3 and K4 swapped for their plain versions."""
+        with ExitStack() as stack:
+            for mod, fn, plain in (
+                    (cuda_attn, "block_attention", "attention_core"),
+                    (cuda_tail, "tail_epilogue", "tail_plain"),
+                    (cuda_stem, "fused_stem", "stem_plain")):
+                stack.enter_context(mock.patch.object(
+                    mod, fn, getattr(mod, plain)))
+            return model.test()
+
+    for dtype in ("float32", "bfloat16"):
+        _, model = models[dtype] = model_for("--compute_dtype", dtype)
+        model.setup()
+        model.set_input(batch)
+        for mod in wrappers.values():
+            mod.launches = 0
+        vis[dtype] = model.test()
+        torch.cuda.synchronize()
+        launches[dtype] = {k: m.launches for k, m in wrappers.items()}
+        t0 = time.perf_counter()
+        for _ in range(VARIANT_REPS):
+            model.test()
+        torch.cuda.synchronize()
+        row[f"ms_{dtype}"] = (time.perf_counter() - t0) * 1e3 / VARIANT_REPS
+    plain32 = plain_test(models["float32"][1])
+    row["plain_diff"] = {
+        k: int(np.abs(v.astype(np.int16) - plain32[k].astype(np.int16)).max())
+        for k, v in vis["float32"].items() if k != "real_B"}
+    # --out_all: the wrapper that flag builds, on the float32 weights
+    _, out_all = model_for("--out_all")
+    out_all.net = models["float32"][1].net
+    out_all.set_input(batch)
+    vis["out_all"] = out_all.test()
+    row["launches"] = launches
+    row["out_all_diff"] = int(np.abs(
+        vis["out_all"]["fake_A"].astype(np.int16)
+        - vis["float32"]["fake_A"].astype(np.int16)).max())
+    row["psnr_bf16"] = _psnr(vis["bfloat16"]["fake_A"], vis["float32"]["fake_A"])
+    finding = None
+    if row["psnr_bf16"] <= 35.0:
+        # below the limit: is it the kernels, or the spec's own bf16
+        # arithmetic (the plain path in bf16 against float32)?
+        row["psnr_bf16_plain"] = _psnr(plain_test(models["bfloat16"][1])["fake_A"],
+                                       plain32["fake_A"])
+        if (row["psnr_bf16_plain"] <= 35.0
+                and row["psnr_bf16"] >= row["psnr_bf16_plain"] - BF16_PLAIN_DB):
+            finding = (f"bf16 fake_A {row['psnr_bf16']:.2f} dB <= 35, the "
+                       f"plain path in bf16 {row['psnr_bf16_plain']:.2f} dB")
+        else:
+            missed.append(f"bf16 fake_A {row['psnr_bf16']:.2f} dB <= 35, the "
+                          f"plain path in bf16 {row['psnr_bf16_plain']:.2f} dB")
+    del models, out_all
+    torch.cuda.empty_cache()
+    # iid_cnn_crs has no ViT, so no attention
+    want = {"tail", "stem"} | (set() if generator_spec(name).cnn
+                               else {"attention"})
+    for dtype in ("float32", "bfloat16"):
+        idle = sorted(k for k in want if not launches[dtype][k])
+        if idle:
+            missed.append(f"{dtype}: {idle} never launched")
+    if max(row["plain_diff"].values()) > 2:
+        missed.append(f"float32 vs plain {row['plain_diff']} > 2/255")
+    if row["out_all_diff"] > 1:
+        missed.append(f"--out_all fake_A {row['out_all_diff']}/255 off > 1")
+    for key, v in vis.items():
+        for visual, arr in v.items():
+            if visual != "real_B" and any(im.min() == im.max() for im in arr):
+                missed.append(f"{key} {visual} has a constant image")
+    return row, missed, finding
+
+
+def phase_variants(torch):
+    """Phase 9: the 17 --model_G specs beside v3 (each through
+    `_variant`), then the inference CLI end to end (phase 4's gates) for
+    the full-res iid_hlgvit_crs_gd4_cfs and for --model dec_mgvit
+    (dec_ipt: no D branch, fake_A is the refined output, no d-only).
+    Returns the CLI runs' launch counts."""
+    from cfen_vit_tpu_torch.models.registry import _REGISTRY, generator_spec
+    from cfen_vit_tpu_torch.ops import cuda_attn, cuda_stem, cuda_tail
+    wrappers = {"attention": cuda_attn, "tail": cuda_tail, "stem": cuda_stem}
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
+    rows, failures = {}, {}
+    try:
+        paths = write_hazy_pngs(os.path.join(work, "data"))
+        first = np.stack([read_png(p) for p in paths[:VARIANT_BATCH]])
+        for name in sorted(_REGISTRY):
+            if name == "iid_hlgvit_crs_gd4_cfs_v3":
+                continue
+            rows[name], missed, finding = _variant(torch, name, first, work,
+                                                   wrappers)
+            r = rows[name]
+            log("variants", f"{name}: {r['parameters']} parameters, "
+                f"model.test() {r['ms_float32']:.2f} / {r['ms_bfloat16']:.2f}"
+                f" ms fp32 / bf16 at batch {VARIANT_BATCH}, launches "
+                f"{r['launches']['float32']}, vs plain {r['plain_diff']}/255,"
+                f" --out_all {r['out_all_diff']}/255, bf16 "
+                f"{r['psnr_bf16']:.2f} dB {'ok' if not missed else missed}")
+            if finding:
+                log("variants", f"{name}: finding, not a fault of the "
+                    f"kernels: {finding} (ROADMAP Queue C)")
+            if missed:
+                failures[name] = missed
+        print(json.dumps({"variants": rows}), flush=True)
+        log("variants", f"{len(rows)} specs in {time.perf_counter() - t0:.1f} s")
+        cli = {}
+        for model, name in (("dec_vit", "iid_hlgvit_crs_gd4_cfs"),
+                            ("dec_mgvit", "dec_ipt")):
+            spec = replace(generator_spec(name), n_feats=24,
+                           hidden_dim_ratio=4, patch_size=32, load_size=512)
+            sub = tempfile.mkdtemp(prefix="e2e_", dir=work)
+            cli[name], _ = phase_e2e(torch, spec, sub, tag=f"variants {name}",
+                                     model_flag=model)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("variants", f"phase 9 in {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError(f"specs that missed a gate: {failures}")
+    return cli
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1525,6 +1726,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     deform_launches = phase_deform(torch, results)
     default_infer, default_train = phase_defaults(torch, spec)
+    variant_cli = phase_variants(torch)
     ported = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "cfen_vit_tpu"
               or m.startswith("cfen_vit_tpu.")]
@@ -1545,6 +1747,8 @@ def main() -> int:
                         "launches_serve": serve_launches[dtype].get(kernel, 0),
                         "launches_defaults": (default_train[dtype].get(kernel, 0)
                                               + default_infer[dtype].get(kernel, 0)),
+                        "launches_variants_cli": sum(
+                            run[dtype].get(kernel, 0) for run in variant_cli.values()),
                         **r})
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -166,10 +166,3 @@ def test_registry_matches_jax(name):
                           pos_every=True, no_pos=False, l2g_ratio=2)
     assert (dataclasses.asdict(TR.generator_spec(name, cfg))
             == dataclasses.asdict(JR.generator_spec(name, cfg)))
-
-
-@pytest.mark.parametrize("name", ["iid_hlgvit_crs_gd4_cfs", "iid_hlgvit_crs_gd4_cfs_v5",
-                                  "iid_hlgvit_crs_gd4", "iid_cnn_crs", "dec_ipt"])
-def test_unported_variants_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        Generator(replace(TR.generator_spec(name), **TINY))

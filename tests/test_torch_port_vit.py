@@ -95,6 +95,29 @@ def test_vit_state_dict_keys_are_the_references(rng):
     assert port == live
 
 
-def test_v5_shrink_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        TV.ViT(TV.ViTSpec(**dataclasses.asdict(_spec(shrink=4))))
+@pytest.mark.parametrize("pools", [0, 1])
+def test_v5_shrunk_vit_matches_jax_in_both_passes(rng, pools):
+    """v5's block: 1x1 conv + ActNorm + ReLU down to a quarter of the
+    channels, the token pipeline, and back (JAX vit_apply with
+    vit_shrink_apply); the ActNorms take their statistics on the first
+    forward, as the JAX init pass does."""
+    from cfen_vit_tpu.models.generator import ANCtx
+    spec = _spec(img_dim=4, num_channels=16, embedding_dim=16, hidden_dim=32,
+                 shrink=4, global_pools=pools)
+    assert spec.inner_channels == 4 and spec.flatten_dim == 16
+    jp = JV.vit_init(jax.random.PRNGKey(4), spec)
+    side = spec.img_dim << pools
+    x0, x1 = (rng.randn(2, side, side, 16).astype(np.float32) for _ in range(2))
+    an = ANCtx(True)
+    ref0 = JV.vit_apply(jp, spec, jnp.asarray(x0), an_ctx=an)
+    jp1 = an.merge({k: dict(v) if isinstance(v, dict) else v
+                    for k, v in jp.items()})
+    ref1 = JV.vit_apply(jp1, spec, jnp.asarray(x1), an_ctx=ANCtx(False))
+    vit = _port_vit(jp, spec)
+    assert {"conv_shrink.1.initialized", "conv_extend.0.weight"} <= set(
+        vit.state_dict())
+    for x, ref in ((x0, ref0), (x1, ref1)):
+        with torch.no_grad():
+            got = vit(torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))))
+        np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1),
+                                   np.asarray(ref), atol=TOL)
