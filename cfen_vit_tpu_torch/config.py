@@ -152,7 +152,7 @@ class Config:
     chop: bool = False
     chop_overlap: int = 64
     trace_dir: str = ""               # profiler trace output (not ported)
-    grad_accum: int = 1               # micro-batches per step (not ported)
+    grad_accum: int = 1               # micro-batches per step
     vgg19_npz: str = ""               # pretrained VGG19 weights (.npz, keys
                                       # conv{k}_{i}.w HWIO / .b); falls back
                                       # to $CFEN_VGG19_NPZ, then to a seeded

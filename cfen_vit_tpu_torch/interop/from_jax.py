@@ -1,6 +1,7 @@
 """Weight bridge: JAX param trees (numpy arrays) -> the port's state_dicts
 (counterpart of cfen_vit_tpu/interop/torch_export.py): the generator, the
-PatchGAN discriminators, the VGG19 tower and the DCNv2 Pack.
+PatchGAN discriminators, the VGG19 tower, the DCNv2 Pack and every
+network of the EPDN family (models/epdn.py).
 
 Pure numpy with the exporter's transposes (torch_export.py _conv, _convT,
 _linear, _an), so it never imports the JAX package.  It writes exactly the
@@ -183,4 +184,132 @@ def vgg_state_dict_from_jax(params) -> dict:
     sd: dict = {}
     for name, conv in params.items():
         _put(sd, name, _conv(conv))
-    return {k: t.float() for k, t in _tensors(sd).items()}
+    return _tensors(sd)
+
+
+# -- the EPDN family (models/epdn.py); the JAX package has no .pth importer
+# for it, so these keys are the port's module names
+
+
+def _resblock(sd, prefix, p):
+    _put(sd, f"{prefix}.conv_block.1", _conv(p["c1"]))
+    _put(sd, f"{prefix}.conv_block.5", _conv(p["c2"]))
+
+
+def _global_trunk(sd, prefix, p):
+    """GlobalGenerator's `model` slots, the c7s1 tail left to the caller."""
+    nd, nb = len(p["down"]), len(p["blocks"])
+    _put(sd, f"{prefix}.1", _conv(p["head"]))
+    for i, conv in enumerate(p["down"]):
+        _put(sd, f"{prefix}.{4 + 3 * i}", _conv(conv))
+    for j, blk in enumerate(p["blocks"]):
+        _resblock(sd, f"{prefix}.{4 + 3 * nd + j}", blk)
+    for i, conv in enumerate(p["up"]):
+        _put(sd, f"{prefix}.{4 + 3 * nd + nb + 3 * i}", _convT(conv))
+    return 4 + 3 * nd + nb + 3 * len(p["up"])
+
+
+def global_generator_state_dict_from_jax(params) -> dict:
+    sd: dict = {}
+    tail = _global_trunk(sd, "model", params)
+    _put(sd, f"model.{tail + 1}", _conv(params["tail"]))
+    return _tensors(sd)
+
+
+def _dehaze(sd, prefix, p):
+    for name, conv in p.items():
+        _put(sd, f"{prefix}.{name}", _conv(conv))
+
+
+def dehaze_state_dict_from_jax(params) -> dict:
+    sd: dict = {}
+    _dehaze(sd, "", params)
+    return _tensors({k[1:]: v for k, v in sd.items()})
+
+
+def local_enhancer_state_dict_from_jax(params) -> dict:
+    """The JAX tree's global tail is unused (the trunk runs without it)
+    and has no slot here."""
+    sd: dict = {}
+    _global_trunk(sd, "model", params["global"])
+    _put(sd, "model1_1.1", _conv(params["down_head"]))
+    _put(sd, "model1_1.4", _conv(params["down_conv"]))
+    nbl = len(params["local_blocks"])
+    for j, blk in enumerate(params["local_blocks"]):
+        _resblock(sd, f"model1_2.{j}", blk)
+    _put(sd, f"model1_2.{nbl}", _convT(params["up_conv"]))
+    _put(sd, f"model1_2.{nbl + 4}", _conv(params["tail"]))
+    _dehaze(sd, "dehaze", params["dehaze"])
+    _dehaze(sd, "dehaze2", params["dehaze2"])
+    return _tensors(sd)
+
+
+def encoder_state_dict_from_jax(params) -> dict:
+    sd: dict = {}
+    nd = len(params["down"])
+    _put(sd, "model.1", _conv(params["head"]))
+    for i, conv in enumerate(params["down"]):
+        _put(sd, f"model.{4 + 3 * i}", _conv(conv))
+    for i, conv in enumerate(params["up"]):
+        _put(sd, f"model.{4 + 3 * nd + 3 * i}", _convT(conv))
+    _put(sd, f"model.{4 + 6 * nd + 1}", _conv(params["tail"]))
+    return _tensors(sd)
+
+
+def _hw_sff(sd, prefix, p):
+    sd[f"{prefix}.conv_squeeze.0.weight"] = np.asarray(p["squeeze"]["w"]).T[
+        :, :, None, None]
+    sd[f"{prefix}.conv_squeeze.1.weight"] = np.asarray(p["prelu_a"])
+    for i, fc in enumerate(p["fcs"]):
+        sd[f"{prefix}.fcs_f{i}.weight"] = np.asarray(fc["w"]).T[:, :, None, None]
+    _put(sd, f"{prefix}.conv_smooth.conv", _conv(p["smooth"]))
+
+
+def hw_sff_state_dict_from_jax(params) -> dict:
+    sd: dict = {}
+    _hw_sff(sd, "", params)
+    return _tensors({k[1:]: v for k, v in sd.items()})
+
+
+def _omni_extractor(sd, prefix, p):
+    for bank in (0, 1):
+        for i, conv in enumerate(p[f"bank{bank}"]):
+            _put(sd, f"{prefix}.extractor_{bank}_{i}.conv", _conv(conv))
+        _hw_sff(sd, f"{prefix}.rwsff_{bank}", p[f"sff{bank}"])
+
+
+def omni_feature_extractor_state_dict_from_jax(params) -> dict:
+    sd: dict = {}
+    _omni_extractor(sd, "", params)
+    return _tensors({k[1:]: v for k, v in sd.items()})
+
+
+def omni_local_enhancer_state_dict_from_jax(params) -> dict:
+    sd: dict = {}
+    for ext in ("ext_coarse", "ext_fine"):
+        _omni_extractor(sd, ext, params[ext])
+    for trunk in ("coarse", "fine"):
+        t = params[trunk]
+        for part, conv in (("down", _conv), ("up", _convT)):
+            for i, lvl in enumerate(t[part]):
+                _put(sd, f"{trunk}.{part}.{i}.conv", conv(lvl["conv"]))
+                _resblock(sd, f"{trunk}.{part}.{i}.block", lvl["block"])
+        for j, blk in enumerate(t["blocks"]):
+            _resblock(sd, f"{trunk}.blocks.{j}", blk)
+    _put(sd, "final_up", _convT(params["final_up"]))
+    for j, blk in enumerate(params["final_blocks"]):
+        _resblock(sd, f"final_blocks.{j}", blk)
+    _put(sd, "final_c5", _conv(params["final_c5"]))
+    _put(sd, "final_c7", _conv(params["final_c7"]))
+    _dehaze(sd, "dehaze", params["dehaze"])
+    _dehaze(sd, "dehaze2", params["dehaze2"])
+    return _tensors(sd)
+
+
+def multiscale_disc_state_dict_from_jax(params) -> dict:
+    """{scales: [{convs}]} -> layer{i} Sequentials: convs at 0, 2, 5, 8, ..."""
+    sd: dict = {}
+    for s, scale in enumerate(params["scales"]):
+        for i, conv in enumerate(scale["convs"]):
+            _put(sd, f"layer{s}.{0 if i == 0 else 3 * i - 1}", _conv(conv))
+    return _tensors(sd)

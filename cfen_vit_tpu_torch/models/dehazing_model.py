@@ -140,8 +140,11 @@ class DehazingModel:
 
 
 def create_model(cfg, device: Optional[torch.device] = None):
-    """The trainer when cfg.isTrain, else the inference wrapper; on
+    """The trainer when cfg.isTrain, else the inference wrapper, for the
+    seven `--model` values (JAX dehazing_model.py create_model); on
     `--gpu_ids`' device unless one is given."""
+    if cfg.model not in _MODEL_DEFAULT_G:
+        raise NotImplementedError(f"model [{cfg.model}] not implemented.")
     from ..config import select_device
     device = device if device is not None else select_device(cfg.gpu_ids)
     if cfg.isTrain:

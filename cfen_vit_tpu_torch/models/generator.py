@@ -217,6 +217,27 @@ def tail_name(spec: GenSpec, b: str) -> str:
     return {"r": "tail_R", "s": "tail_S", "d": "tail_D"}[b]
 
 
+def unreached_modules(spec: GenSpec) -> set:
+    """Top-level modules on no output's loss path (JAX computes them too,
+    and their grads are zero there as here): the xdh refiner where D is
+    trained (dh feeds no loss), D's decoder levels 3 and 2 with its
+    level-3 upsample and skip where D's level-2 upsample reads S's level 2
+    (d02_us_from_s), and dec_ipt's S encoder level 3 (S decodes from R's
+    level 3)."""
+    dead = set()
+    if spec.xdh and "d" in spec.branches:
+        dead.add("sp")
+    if spec.d02_us_from_s:
+        for lvl in (3, 2):
+            dead.update(level_names(spec, False, lvl, "d"))
+        dead.update((us_name(spec, 3, "d"),
+                     "cfsm2g_d03d" if spec.d_skip == "cfs" else "sk_conv_d03d"))
+    if spec.s_dec_from_r_enc:
+        e = enc_suffix(spec, "s")
+        dead.update((f"ds_conv_e03{e}", *level_names(spec, True, 3, e)))
+    return dead
+
+
 def tail_norm(spec: GenSpec, b: str) -> Optional[str]:
     """The norm in the tail's slot 2: "actnorm", "instance" or None (the
     1-channel S tail of most files has none)."""

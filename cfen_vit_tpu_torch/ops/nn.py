@@ -32,8 +32,9 @@ import torch.nn as nn
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm2d(affine=False) on [B,C,H,W] with float32 statistics
     (E[x^2] - mu^2, floored at 0), cast back to x's dtype — as in the JAX
-    package, which makes the bf16 path use f32 statistics too."""
-    x32 = x.float()
+    package, which makes the bf16 path use f32 statistics too; float64
+    keeps float64, as there."""
+    x32 = x if x.dtype == torch.float64 else x.float()
     mu = x32.mean(dim=(2, 3), keepdim=True)
     var = (x32.square().mean(dim=(2, 3), keepdim=True)
            - mu.square()).clamp_min(0.0)

@@ -1,8 +1,14 @@
 """Conditional-GAN trainer (counterpart of cfen_vit_tpu/train/trainer.py;
-the reference's DECHLGVIT, model_iid_dehazing.py), `--model dec_vit`.
+the reference's DECHLGVIT, model_iid_dehazing.py, and its MGVIT and
+DECMGVIT wrappers) for every `--model`.
+
+The generator is `--model`'s own spec where it has one, else `--model_G`
+(`models/dehazing_model.py _MODEL_DEFAULT_G`).  Branches and their D: d
+is A (a spec without d but with the xdh refiner trains its refined dh as
+A: dec_ipt), r is R, s is S; one discriminator per mapped branch.
 
 One `optimize_parameters` per batch, in the JAX package's order:
-  1. generator forward and the 7-term G loss, grads of G only;
+  1. generator forward and the G loss, grads of G only;
   2. the ImagePool advances with the current fakes, and its query result
      is discarded (the reference's backward_D builds fake_*_cat from the
      current fakes, ref :173-187), so D trains on un-pooled fakes;
@@ -10,13 +16,31 @@ One `optimize_parameters` per batch, in the JAX package's order:
      only; both losses use the parameters from before the step;
   4. the skip gate: isfinite(G) and G < --skip_threshold, else neither
      network, no Adam moment or step count and no pool changes;
-  5. Adam (beta1 --beta1, beta2 0.999, eps 1e-8) on G and on D_A/D_R/D_S
+  5. Adam (beta1 --beta1, beta2 0.999, eps 1e-8) on G and on the Ds
      jointly, at lr_for_epoch.
 
-G loss per branch A (dehazed), R, S (S expanded 1 -> 3 channels): GAN
-x0.0618, VGG x2 lambda_vgg, gradient MSE x2, L1 x2, (1 - SSIM) x3; on A
-only ID-MRF x0.06 and semantic consistency x2, both called as (real, fake)
-as the reference does (the losses are asymmetric).
+G loss sets:
+  * dec_vit, decr_vit, decs_vit, decn_vit, test: per branch (S expanded
+    1 -> 3 channels) GAN x0.0618, VGG x2 lambda_vgg, gradient MSE x2, L1
+    x2, (1 - SSIM) x3; on A only ID-MRF x0.06 and semantic consistency
+    x2, both called as (real, fake) as the reference does (the losses are
+    asymmetric);
+  * vit (MGVIT, ref mgvit_model.py:90-123): A only, GAN x0.0618, VGG x2
+    lambda_vgg, gradient MSE x0.2, L1 x3 under the keys GAN, vgg,
+    gradient_fake_A, L1; summed in the compute dtype, as JAX does;
+  * dec_mgvit (DECMGVIT, ref dec_mgvit_model.py:141-182): per branch GAN
+    x0.0618, VGG x2 lambda_vgg, gradient MSE x1, L1 x2.
+
+--grad_accum N splits the batch into N micro-batches of batchSize / N, in
+order; each runs its G loss and backward, then its D loss and backward,
+on the parameters from before the step, and its graph is freed before
+the next one starts.  Grads are the mean over the micro-batches, summed
+in float32 on the masters; the losses are their means (ID-MRF is
+sum-normalised, so its term comes out scaled by 1 / N, as in JAX); the
+visuals are the last micro-batch's fakes; the skip gate reads the mean G
+loss once.  The pools take the micro-batches' fakes after the gate, in
+order, which leaves them as a query after each micro-batch would (their
+answer is discarded and they draw from their own generator).
 
 --compute_dtype bfloat16: float32 master parameters and moments.  The G
 loss runs a bf16 copy of the generator whose parameters are refreshed
@@ -27,8 +51,8 @@ JAX's cast gives; the ActNorm `initialized` buffers are not cast.  The D
 and VGG parameters enter the G loss cast to bf16 (functional_call,
 without grad: the G loss differentiates G only).  The D loss runs in
 float32 on the float32 D, as JAX's type promotion makes it there.  The
-ActNorms are initialised from the first batch in float32 before the first
-step.
+ActNorms are initialised from the whole first batch in float32 before
+the first step.
 Batches travel as uint8 when that is lossless and are normalised on the
 device.  Pools are device ring buffers in the compute dtype, updated in
 place, sampled by a torch.Generator.
@@ -47,6 +71,7 @@ from torch.func import functional_call
 from ..losses.gan import gan_loss
 from ..losses.vgg import (idmrf_loss, semantic_consistency_loss, vgg19_init,
                           vgg_perceptual_loss)
+from ..models.dehazing_model import _MODEL_DEFAULT_G
 from ..models.discriminator import apply_d, define_d
 from ..models.generator import Generator, init_weights
 from ..models.registry import generator_spec
@@ -56,8 +81,6 @@ from .checkpoint import load_train_state, save_net, save_train_state
 from .schedule import lr_for_epoch
 
 _VISUAL = {"A": "fake_A", "R": "fake_R", "S": "fake_S"}
-
-
 def _u8_wire(v: np.ndarray) -> np.ndarray:
     """float [-1,1] -> uint8 iff exactly recoverable (loader floats are
     u8 / 127.5 - 1); other arrays pass unchanged."""
@@ -70,6 +93,21 @@ def _u8_wire(v: np.ndarray) -> np.ndarray:
     if np.array_equal(u8.astype(np.float32) / 127.5 - 1.0, v):
         return u8
     return v
+
+
+def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """NHWC numpy arrays of a loader batch -> device NCHW in [-1, 1],
+    over the uint8 wire when that is lossless (float32 then); other
+    arrays keep their float dtype."""
+    out = {}
+    for k, v in batch.items():
+        if not isinstance(v, np.ndarray):
+            continue
+        t = torch.from_numpy(_u8_wire(v)).to(device)
+        t = t.permute(0, 3, 1, 2).contiguous()
+        out[k] = (t.float() / 127.5 - 1.0 if t.dtype == torch.uint8
+                  else t if t.is_floating_point() else t.float())
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -121,25 +159,20 @@ class GanTrainer:
     update_learning_rate."""
 
     def __init__(self, cfg, device: torch.device):
-        if cfg.model != "dec_vit":
-            raise NotImplementedError(
-                f"--model {cfg.model}: the port trains dec_vit only; the "
-                "other trainers are ROADMAP Queue A item 9")
-        if int(cfg.grad_accum) > 1:
-            raise NotImplementedError(
-                "--grad_accum > 1 is not ported (ROADMAP Queue A item 8)")
         self.cfg = cfg
         self.device = device
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
-        self.spec = generator_spec(cfg.model_G, cfg)
-        if self.spec.name != "iid_hlgvit_crs_gd4_cfs_v3":
-            raise NotImplementedError(
-                f"--model_G {self.spec.name}: the port trains the v3 "
-                "generator only; the other specs' trainers are ROADMAP "
-                "Queue A item 9")
-        self.branches = {b: n for b, n in (("d", "A"), ("r", "R"), ("s", "S"))
-                         if b in self.spec.branches}
+        self.spec = generator_spec(_MODEL_DEFAULT_G.get(cfg.model)
+                                   or cfg.model_G, cfg)
+        self.loss_set = {"vit": "mgvit", "dec_mgvit": "decmgvit"}.get(
+            cfg.model, "dec")
+        self.accum = max(1, int(cfg.grad_accum))
+        # generator output -> fake name; dec_ipt has no d, so its refined
+        # dh is A (ref dec_mgvit_model.py:90)
+        self.branches = {"d" if "d" in self.spec.branches else "dh": "A"}
+        self.branches.update({b: b.upper() for b in "rs"
+                              if b in self.spec.branches})
         self.use_lsgan = not cfg.no_lsgan
         self.remat = (cfg.remat_mode or "level") if cfg.remat else "none"
         gen = torch.Generator().manual_seed(int(cfg.seed))
@@ -220,19 +253,32 @@ class GanTrainer:
             real, lk = reals[name], name.lower()
             pred = functional_call(self.d[name], self._cast(self.d[name]),
                                    (torch.cat([hazy, fake], dim=1),))
-            losses[f"GAN_{lk}"] = gan_loss(pred, True, self.use_lsgan) * 0.0618
-            losses[f"vgg_{lk}"] = (vgg_perceptual_loss(self.vgg, fake, real)
-                                   * cfg.lambda_vgg * 2)
-            losses[f"gradient_fake_{lk}"] = torch.mean(torch.square(
-                color_gradient(real) - color_gradient(fake))) * 2
-            losses[f"L2_{lk}"] = torch.mean(torch.abs(real - fake)) * 2
-            losses[f"ssim_{lk}"] = (1.0 - ssim(real, fake)) * 3
-        losses["p"] = idmrf_loss(self.vgg, reals["A"], fakes["A"]) * 0.06
-        losses["s"] = semantic_consistency_loss(self.vgg, reals["A"],
-                                                fakes["A"]) * 2
-        losses = {k: v.float() for k, v in losses.items()}
+            gan = gan_loss(pred, True, self.use_lsgan) * 0.0618
+            vgg = vgg_perceptual_loss(self.vgg, fake, real) * cfg.lambda_vgg * 2
+            grad = torch.mean(torch.square(color_gradient(real)
+                                           - color_gradient(fake)))
+            l1 = torch.mean(torch.abs(real - fake))
+            if self.loss_set == "mgvit":   # A is its only branch
+                losses.update(GAN=gan, vgg=vgg, gradient_fake_A=grad * 0.2,
+                              L1=l1 * 3)
+                continue
+            losses[f"GAN_{lk}"] = gan
+            losses[f"vgg_{lk}"] = vgg
+            losses[f"gradient_fake_{lk}"] = grad * (
+                1 if self.loss_set == "decmgvit" else 2)
+            losses[f"L2_{lk}"] = l1 * 2
+            if self.loss_set == "dec":
+                losses[f"ssim_{lk}"] = (1.0 - ssim(real, fake)) * 3
+        if self.loss_set == "dec":
+            losses["p"] = idmrf_loss(self.vgg, reals["A"], fakes["A"]) * 0.06
+            losses["s"] = semantic_consistency_loss(self.vgg, reals["A"],
+                                                    fakes["A"]) * 2
+        # JAX casts the terms to float32 before their sum, but MGVIT's, which
+        # it sums in the compute dtype
+        if self.loss_set != "mgvit":
+            losses = {k: v.float() for k, v in losses.items()}
         losses["G"] = sum(losses.values())
-        return losses, fakes, reals
+        return {k: v.float() for k, v in losses.items()}, fakes, reals
 
     def _d_loss(self, hazy, fakes, reals):
         losses = {}
@@ -248,16 +294,7 @@ class GanTrainer:
 
     # -- the step -----------------------------------------------------------
     def set_input(self, batch: Dict) -> None:
-        """NHWC numpy batch from the loader -> device NCHW float32 in
-        [-1, 1], over the uint8 wire when that is lossless."""
-        self._batch = {}
-        for k, v in batch.items():
-            if not isinstance(v, np.ndarray):
-                continue
-            t = torch.from_numpy(_u8_wire(v)).to(self.device)
-            t = t.permute(0, 3, 1, 2).contiguous()
-            self._batch[k] = (t.float() / 127.5 - 1.0
-                              if t.dtype == torch.uint8 else t.float())
+        self._batch = device_batch(batch, self.device)
         self.image_paths = batch.get("B_paths", [])
 
     @torch.no_grad()
@@ -270,36 +307,60 @@ class GanTrainer:
             self.pools[name] = pool_init(self.cfg.pool_size, x.shape[1:],
                                          self.dtype, self.device)
 
+    def _micro_step(self, g_c, batch, g_grads):
+        """One micro-batch: G loss and backward, D loss and backward (the
+        grads of G and D accumulate on their .grad; a compute copy's G
+        grads are moved into the float32 list `g_grads`).  Returns the
+        detached losses and fakes; the graph is gone when it returns."""
+        losses, fakes, reals = self._g_loss(g_c, batch)
+        losses["G"].backward(inputs=list(g_c.parameters()))
+        if g_c is not self.g:
+            for i, pc in enumerate(g_c.parameters()):
+                if pc.grad is not None:
+                    g_grads[i] = (pc.grad.float() if g_grads[i] is None
+                                  else g_grads[i].add_(pc.grad))
+                    pc.grad = None
+        d_losses = self._d_loss(batch["B"], fakes, reals)
+        sum(d_losses.values()).backward(inputs=list(self.d.parameters()))
+        losses.update(d_losses)
+        return ({k: v.detach() for k, v in losses.items()},
+                {k: v.detach() for k, v in fakes.items()})
+
     def optimize_parameters(self, cfg=None) -> None:
         batch = self._batch
         if not self.pools:
             self._init_state(batch["B"])
         g_c = self._g_compute()
-        losses, fakes, reals = self._g_loss(g_c, batch)
-        losses["G"].backward(inputs=list(g_c.parameters()))
-        d_losses = self._d_loss(batch["B"], fakes, reals)
-        sum(d_losses.values()).backward(inputs=list(self.d.parameters()))
-        gl = float(losses["G"].detach())
+        g_grads = [None] * len(self.g_opt.param_groups[0]["params"])
+        mb = batch["B"].shape[0] // self.accum
+        steps = [self._micro_step(g_c, {k: v[i * mb:(i + 1) * mb]
+                                        for k, v in batch.items()}, g_grads)
+                 for i in range(self.accum)]
+        losses = {k: torch.stack([l[k] for l, _ in steps]).mean()
+                  for k in steps[0][0]}
+        gl = float(losses["G"])
         if math.isfinite(gl) and gl < float(self.cfg.skip_threshold):
             with torch.no_grad():
-                for name, fake in fakes.items():
-                    pool_query(self.pools[name], fake.detach(), self.pool_gen)
-            for pc, pm in zip(g_c.parameters(), self.g.parameters()):
-                pm.grad = (torch.zeros_like(pm) if pc.grad is None
-                           else pc.grad.float())
+                for _, fakes in steps:
+                    for name, fake in fakes.items():
+                        pool_query(self.pools[name], fake, self.pool_gen)
+            if g_c is not self.g:
+                for pm, acc in zip(self.g.parameters(), g_grads):
+                    pm.grad = acc
             for opt in (self.g_opt, self.d_opt):
                 for group in opt.param_groups:
                     group["lr"] = self.lr
                     for p in group["params"]:   # every parameter moves,
                         if p.grad is None:      # as in JAX
                             p.grad = torch.zeros_like(p)
+                        elif self.accum > 1:
+                            p.grad /= self.accum
                 opt.step()
             self.step += 1
         for module in (g_c, self.g, self.d):
             module.zero_grad(set_to_none=True)
-        losses.update(d_losses)
-        self._losses = {k: v.detach() for k, v in losses.items()}
-        self._fakes = {k: v.detach() for k, v in fakes.items()}
+        self._losses = losses
+        self._fakes = steps[-1][1]
 
     # -- the reference wrapper's interface --------------------------------
     def get_current_losses(self) -> Dict[str, float]:

@@ -93,7 +93,30 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      A `{"variants": ...}` line holds each spec's parameters, launches,
      differences, PSNR and model.test() ms.  Then phase 4's inference CLI
      with its gates for iid_hlgvit_crs_gd4_cfs (--loadSize 512) and for
-     --model dec_mgvit (dec_ipt: fake_A is the refined output, no d-only).
+     --model dec_mgvit (dec_ipt: fake_A is the refined output, no d-only);
+ 10. the trainers, at full width (n_feats 24, hidden_dim_ratio 4, patch
+     32, 4 heads, a 512x512 input, batch 4, --remat --remat_mode branch):
+     the train CLI for --model decr_vit, decs_vit, decn_vit, vit
+     (--dataset_mode vit) and dec_mgvit in float32 and bfloat16, 2 steps
+     each over 4 of phase 5's kind of quadruples, the float32 run saving
+     checkpoints that the test CLI reads back (4 non-constant fake_A
+     PNGs). Gates: finite losses, the JAX trainer's loss keys, every G and
+     D tensor moved but those of generator modules no loss reaches
+     (models/generator.py `unreached_modules`), which stay; K1, K3 and K4
+     launched and recomputed; K5 launched where the loss set has ID-MRF
+     (decr, decs, decn) and not in vit and dec_mgvit. Each model's float32
+     step from its seeded weights on a resident batch with the kernels
+     against the same step on the plain versions, on cuDNN's deterministic
+     algorithms (each loss term within 1e-3 relative; ||g - p|| / ||p||
+     within 1e-2 over G and 5e-4 over each D, and each tensor within 1e-1
+     of its norm plus 1e-3 of the network's rms tensor norm, the worst
+     tensor logged). Then --model dec_vit on the non-v3
+     iid_hlgvit_crs_gd4_cfs (float32, the same gates); --grad_accum 2 on
+     the canonical v3 against accum 1 from the same weights (pools take 4
+     images, L2_a, ssim_a, GAN_a, vgg_a within 5e-3, p halved, a lower
+     peak); the EpdnTrainer at batch 4, 512x512, float32, 2 steps (finite
+     losses, the parameters moved). It logs each run's s/step after step 0
+     and peak memory, and a `{"trainers": ...}` line.
 
 Phases 1-5 run with K2 off (CFEN_PALLAS_VIT unset), as by default.
 The last two lines are a JSON object of the kernels' results and
@@ -105,6 +128,7 @@ from __future__ import annotations
 import glob
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -1695,6 +1719,418 @@ def phase_variants(torch):
     return cli
 
 
+# phase 10: the trainers.  The JAX trainer's loss keys of each --model
+# (cfen_vit_tpu/train/trainer.py _g_loss and _d_loss)
+_DEC_TERMS = ("GAN", "vgg", "gradient_fake", "L2", "ssim")
+TRAINER_LOSS_KEYS = {
+    "decr_vit": {f"{t}_{b}" for t in _DEC_TERMS for b in "ar"}
+    | {"p", "s", "G", "DA", "DR"},
+    "decs_vit": {f"{t}_{b}" for t in _DEC_TERMS for b in "as"}
+    | {"p", "s", "G", "DA", "DS"},
+    "decn_vit": {f"{t}_a" for t in _DEC_TERMS} | {"p", "s", "G", "DA"},
+    "vit": {"GAN", "vgg", "gradient_fake_A", "L1", "G", "DA"},
+    "dec_mgvit": {f"{t}_{b}" for t in _DEC_TERMS[:4] for b in "ars"}
+    | {"G", "DA", "DR", "DS"},
+    "dec_vit": {f"{t}_{b}" for t in _DEC_TERMS for b in "ars"}
+    | {"p", "s", "G", "DA", "DR", "DS"},
+}
+MRF_COUNTERS = ("mrf_fwd", "mrf_bwd_do", "mrf_bwd_dt")
+# kernels against plain, one step in float32 from the same weights, with
+# cuDNN's deterministic algorithms (its default ones differ from run to
+# run by about as much as the kernels differ from plain): each loss term
+# (relative); the grads of G and of each D as ||g - p|| / ||p|| over the
+# network (which bounds the G grad-norm gap from above) and per tensor,
+# each within TRAINER_TENSOR_TOL of its own norm plus TRAINER_TENSOR_FLOOR
+# of the network's root-mean-square tensor norm (the floor is for tensors
+# whose exact grad is zero, such as the biases before an InstanceNorm,
+# which hold only float noise).  The readings repeat from run to run but
+# for a discrete event in decr_vit's grads in one run of three (G 5.3e-3,
+# one tensor 4.1e-2; PERF.md section 6); the limits stand about 2x above
+# it, and a wiring fault (a sign, a missing or misrouted grad) moves a
+# tensor by its whole norm
+TRAINER_LOSS_TOL, TRAINER_G_TOL, TRAINER_D_TOL = 1e-3, 1e-2, 5e-4
+TRAINER_TENSOR_TOL, TRAINER_TENSOR_FLOOR = 1e-1, 1e-3
+# --grad_accum 2 against accum 1: the mean-normalised terms (JAX's bar,
+# tests/test_train.py test_grad_accumulation) and p against half of it
+ACCUM_TOL = 5e-3
+
+
+def _plain_versions(torch):
+    """K1, K3, K4 and K5 swapped for their plain versions (a context)."""
+    from cfen_vit_tpu_torch.ops import cuda_attn, cuda_mrf, cuda_stem, cuda_tail
+    stack = ExitStack()
+    for mod, fn, plain in ((cuda_attn, "block_attention", "attention_core"),
+                           (cuda_tail, "tail_epilogue", "tail_plain"),
+                           (cuda_stem, "fused_stem", "stem_plain"),
+                           (cuda_mrf, "mrf_core", "mrf_core_plain")):
+        stack.enter_context(mock.patch.object(mod, fn, getattr(mod, plain)))
+    return stack
+
+
+def _step_losses_and_grads(torch, tr, batch):
+    """One micro-step of `tr` (float32) on `batch`: its losses and the
+    grads of G and of the Ds (float64 copies, keyed by network); the
+    trainer's grads are dropped after."""
+    for net in (tr.g, tr.d):
+        net.zero_grad(set_to_none=True)
+    losses, _ = tr._micro_step(tr.g, batch, None)
+    grads = {"G": {k: p.grad.double() for k, p in tr.g.named_parameters()
+                   if p.grad is not None}}
+    for name, d in tr.d.items():
+        grads[f"D_{name}"] = {k: p.grad.double() for k, p in d.named_parameters()
+                              if p.grad is not None}
+    for net in (tr.g, tr.d):
+        net.zero_grad(set_to_none=True)
+    return {k: float(v) for k, v in losses.items()}, grads
+
+
+def _grad_errors(got, want):
+    """Per network of `want`: ||got - want|| / ||want|| over the network,
+    and its worst tensor by (||g_t - p_t|| - floor) / ||p_t|| with the
+    floor TRAINER_TENSOR_FLOOR x the root-mean-square tensor norm; the
+    worst tensor's name and relative error, and `inside`: the network
+    within TRAINER_G_TOL (G) or TRAINER_D_TOL (a D) and every tensor
+    within TRAINER_TENSOR_TOL of its norm plus the floor."""
+    out = {}
+    for net, ref in want.items():
+        if set(got[net]) != set(ref):
+            raise AssertionError(f"{net}: grads of {sorted(set(got[net]) ^ set(ref))[:4]}"
+                                 " on one path only")
+        err = {k: float((got[net][k] - p).norm()) for k, p in ref.items()}
+        norm = {k: float(p.norm()) for k, p in ref.items()}
+        total = math.sqrt(sum(n * n for n in norm.values()))
+        floor = TRAINER_TENSOR_FLOOR * total / math.sqrt(len(ref))
+        worst = max(ref, key=lambda k: (err[k] - floor) / max(norm[k], 1e-300))
+        relative = math.sqrt(sum(e * e for e in err.values())) / total
+        limit = TRAINER_G_TOL if net == "G" else TRAINER_D_TOL
+        out[net] = {"relative": relative, "worst_tensor": worst,
+                    "worst_relative": err[worst] / max(norm[worst], 1e-300),
+                    "inside": relative <= limit and err[worst]
+                    <= TRAINER_TENSOR_TOL * norm[worst] + floor}
+    return out
+
+
+def _kernels_vs_plain(torch, tr, start, tag):
+    """The float32 step on a resident batch with the kernels and on the
+    plain versions, from the seeded weights the CLI run started from
+    (`start`, the ActNorms initialised on that batch, so that the readings
+    repeat from run to run), on cuDNN's deterministic algorithms: each
+    loss term within TRAINER_LOSS_TOL relative, the grads of G within
+    TRAINER_G_TOL and of each D within TRAINER_D_TOL over the network, and
+    every tensor inside its bar (`_grad_errors`).  The kernels' step on cuDNN's default algorithms,
+    held against the deterministic one, is logged: the spread the
+    deterministic algorithms remove.  Returns the largest loss difference,
+    the grad errors and that spread."""
+    tr.g.load_state_dict({k: v for k, v in start.items() if not k.startswith("D.")})
+    tr.d.load_state_dict({k[2:]: v for k, v in start.items() if k.startswith("D.")})
+    batch = _resident(torch, tr)
+    tr._init_state(batch["B"])
+    _, default = _step_losses_and_grads(torch, tr, batch)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got, ggrads = _step_losses_and_grads(torch, tr, batch)
+        with _plain_versions(torch):
+            want, pgrads = _step_losses_and_grads(torch, tr, batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    loss_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                   for k in want)
+    grads = _grad_errors(ggrads, pgrads)
+    spread = {net: g["relative"] for net, g in _grad_errors(default, ggrads).items()}
+    del ggrads, pgrads, default
+    log("trainers", f"{tag}: kernels vs plain, one float32 step: largest "
+        f"loss term {loss_err:.3g} relative (limit {TRAINER_LOSS_TOL}); "
+        "grads, ||g - p|| / ||p|| over the network (limit G "
+        f"{TRAINER_G_TOL}, D {TRAINER_D_TOL}) and the worst tensor (limit "
+        f"{TRAINER_TENSOR_TOL} + a floor of {TRAINER_TENSOR_FLOOR} x the "
+        "network's rms tensor norm): " + "; ".join(
+            f"{net} {g['relative']:.3g}, {g['worst_tensor']} "
+            f"{g['worst_relative']:.3g}" for net, g in grads.items())
+        + "; the kernels' step on cuDNN's default algorithms against it: "
+        + ", ".join(f"{net} {v:.3g}" for net, v in spread.items()))
+    bad = [net for net, g in grads.items() if not g["inside"]]
+    if loss_err > TRAINER_LOSS_TOL or bad:
+        raise AssertionError(f"{tag}: kernels vs plain, loss {loss_err}, "
+                             f"grads {grads}")
+    return {"loss": loss_err, "grads": grads, "default_algorithms": spread}
+
+
+def _resident(torch, tr, n=BATCH):
+    """A seeded synthetic batch (train/overfit.py's set) on the device."""
+    from cfen_vit_tpu_torch.train.overfit import make_overfit_set
+    from cfen_vit_tpu_torch.train.trainer import device_batch
+    return device_batch(make_overfit_set(n, SIDE), tr.device)
+
+
+def _trainer_cli_run(torch, argv, tag, model):
+    """One train CLI run of 2 steps (2 epochs of one batch); returns its
+    row (s/step after step 0, peak GiB, launches), the run, the trainer
+    and the seeded weights it started from (G's, and D's under "D.").
+    Gates: 2 steps applied, finite losses, the JAX loss keys, every G and
+    D tensor moved but the generator's unreached modules, which stay; K1,
+    K3 and K4 launched and recomputed, and K5's three kernels launched
+    exactly where the loss set has ID-MRF."""
+    from cfen_vit_tpu_torch.models.generator import unreached_modules
+    from cfen_vit_tpu_torch.train import trainer as T
+    from cfen_vit_tpu_torch.train.cli import main as train_main
+
+    counters = _counters()
+    start = {}
+    setup = T.GanTrainer.setup
+
+    def snapshot(self, cfg=None):   # the seeded weights the CLI starts from
+        start.update({k: v.detach().clone() for k, v in self.g.state_dict().items()})
+        start.update({f"D.{k}": v.detach().clone()
+                      for k, v in self.d.state_dict().items()})
+        return setup(self, cfg)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    with mock.patch.object(T.GanTrainer, "setup", snapshot):
+        run = train_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    tr = run["model"]
+    steps = run["step_seconds"]
+    row = {"s_per_step": steps[1] if len(steps) > 1 else None,
+           "step_seconds": [round(x, 4) for x in steps],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "run_seconds": seconds,
+           "parameters": sum(p.numel() for p in tr.g.parameters())}
+    log("trainers", f"{tag}: {tr.spec.name}, {row['parameters']} G "
+        f"parameters, {len(steps)} steps in {seconds:.2f} s (run incl. data, "
+        f"init, checkpoints); step seconds {row['step_seconds']}, "
+        f"{row['s_per_step']:.4f} s/step after step 0; peak "
+        f"{row['peak_gib']:.2f} GiB; launches {launches}")
+    for i, losses in enumerate(run["losses"]):
+        log("trainers", f"{tag} step {i}: " + ", ".join(
+            f"{k} {v:.5g}" for k, v in losses.items()))
+    if len(steps) != 2 or tr.step != 2:
+        raise AssertionError(f"{tag}: {len(steps)} steps printed, {tr.step} "
+                             "applied, expected 2")
+    bad = [k for losses in run["losses"] for k, v in losses.items()
+           if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{tag}: non-finite losses {bad}")
+    keys = set(run["losses"][-1])
+    if keys != TRAINER_LOSS_KEYS[model]:
+        raise AssertionError(f"{tag}: loss keys {sorted(keys)}, the JAX "
+                             f"trainer's {sorted(TRAINER_LOSS_KEYS[model])}")
+    now = dict(tr.g.state_dict())
+    now.update({f"D.{k}": v for k, v in tr.d.state_dict().items()})
+    keys = [k for k in start if not k.endswith("initialized")]
+    still = {k for k in keys if torch.equal(now[k], start[k])}
+    dead = {k for k in keys if k.split(".")[0] in unreached_modules(tr.spec)}
+    if still != dead:
+        raise AssertionError(f"{tag}: tensors that did not move "
+                             f"{sorted(still - dead)[:8]}, unreached ones that "
+                             f"moved {sorted(dead - still)[:8]}")
+    log("trainers", f"{tag}: every G and D tensor moved but the "
+        f"{len(dead)} of modules no loss reaches")
+    want_mrf = "p" in TRAINER_LOSS_KEYS[model]
+    idle = [k for k in ("attention", "tail", "stem", "attention recomputes",
+                        "tail recomputes", "stem recomputes")
+            + (MRF_COUNTERS if want_mrf else ()) if not launches[k]]
+    stray = [] if want_mrf else [k for k in MRF_COUNTERS if launches[k]]
+    if idle or stray:
+        raise AssertionError(f"{tag}: never launched {idle}; K5 launched "
+                             f"without ID-MRF in the loss set {stray}")
+    return row, run, tr, start
+
+
+def _accum_check(torch, spec, tmp):
+    """--grad_accum 2 on the canonical v3 at batch 4 (float32, resident
+    batch) against accum 1 from the same weights: the pools take 4 images
+    a step, the mean-normalised terms agree, p is halved, and the peak
+    memory of the step is lower."""
+    from cfen_vit_tpu_torch.config import parse_args
+    from cfen_vit_tpu_torch.train.trainer import GanTrainer
+    argv = ["--name", "accum", "--checkpoints_dir", tmp,
+            "--model_G", spec.name, "--n_feats", str(spec.n_feats),
+            "--hidden_dim_ratio", str(spec.hidden_dim_ratio),
+            "--patch_size", str(spec.patch_size),
+            "--loadSize", str(spec.load_size), "--batchSize", str(BATCH),
+            "--gpu_ids", "0", "--grad_accum", "2"]
+    tr = GanTrainer(parse_args(argv, save_opt=False), torch.device("cuda"))
+    tr._batch = _resident(torch, tr)
+    tr._init_state(tr._batch["B"])
+    start = {k: v.clone() for k, v in tr.g.state_dict().items()}
+    start_d = {k: v.clone() for k, v in tr.d.state_dict().items()}
+    out = {}
+    for accum in (1, 2, 1):
+        tr.g.load_state_dict(start)
+        tr.d.load_state_dict(start_d)
+        for opt in (tr.g_opt, tr.d_opt):
+            opt.state.clear()
+        for pool in tr.pools.values():
+            pool["n"] = 0
+        tr.accum = accum
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.optimize_parameters()
+        losses = tr.get_current_losses()
+        torch.cuda.synchronize()
+        out[accum] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "pools": {k: p["n"] for k, p in tr.pools.items()}}
+    one, two = out[1], out[2]
+    errs = {k: abs(two["losses"][k] - one["losses"][k]) / max(1.0, abs(one["losses"][k]))
+            for k in ("L2_a", "ssim_a", "GAN_a", "vgg_a")}
+    errs["p"] = abs(two["losses"]["p"] - one["losses"]["p"] / 2) / abs(one["losses"]["p"] / 2)
+    log("trainers", f"--grad_accum 2 vs 1 (v3, batch {BATCH}, float32): "
+        f"pools {two['pools']}; relative differences {errs} (limit "
+        f"{ACCUM_TOL}; p against half of accum 1's); step {two['seconds']:.4f}"
+        f" vs {one['seconds']:.4f} s, peak {two['peak_gib']:.2f} vs "
+        f"{one['peak_gib']:.2f} GiB")
+    if any(n != BATCH for n in two["pools"].values()):
+        raise AssertionError(f"--grad_accum 2: pools {two['pools']}")
+    if max(errs.values()) > ACCUM_TOL:
+        raise AssertionError(f"--grad_accum 2 vs 1: {errs}")
+    if two["peak_gib"] >= one["peak_gib"]:
+        raise AssertionError(f"--grad_accum 2 peak {two['peak_gib']:.2f} GiB "
+                             f">= accum 1's {one['peak_gib']:.2f}")
+    del tr
+    return {"accum2": {k: v for k, v in two.items() if k != "losses"},
+            "accum1": {k: v for k, v in one.items() if k != "losses"},
+            "differences": errs}
+
+
+def _epdn_check(torch, tmp):
+    """EpdnTrainer: 2 steps at 512x512, batch 4, float32 on a resident
+    batch: finite losses, the parameters moved."""
+    from cfen_vit_tpu_torch.config import parse_args
+    from cfen_vit_tpu_torch.train.pix2pixhd import EpdnTrainer
+    cfg = parse_args(["--name", "epdn", "--checkpoints_dir", tmp,
+                      "--batchSize", str(BATCH), "--gpu_ids", "0"],
+                     save_opt=False)
+    tr = EpdnTrainer(cfg, torch.device("cuda"))
+    start = {k: v.clone() for net in (tr.g, tr.d)
+             for k, v in net.state_dict(prefix=f"{type(net).__name__}.").items()}
+    from cfen_vit_tpu_torch.train.overfit import make_overfit_set
+    batch = make_overfit_set(BATCH, SIDE)
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tr.set_input(batch)
+        tr.optimize_parameters()
+        losses.append(tr.get_current_losses())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    now = {k: v for net in (tr.g, tr.d)
+           for k, v in net.state_dict(prefix=f"{type(net).__name__}.").items()}
+    moved = np.mean([not torch.equal(now[k], start[k]) for k in start])
+    row = {"s_per_step": seconds[1], "step_seconds": seconds,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "moved": float(moved),
+           "parameters": sum(p.numel() for p in tr.g.parameters())}
+    log("trainers", f"EpdnTrainer (LocalEnhancer ngf {cfg.epdn_ngf}, "
+        f"{row['parameters']} G parameters, {cfg.num_D}-scale D, batch "
+        f"{BATCH}, {SIDE}x{SIDE}, float32): step seconds "
+        f"{[round(x, 4) for x in seconds]}, peak {row['peak_gib']:.2f} GiB, "
+        f"share of tensors moved {moved:.3f}; losses {losses}")
+    if any(not np.isfinite(v) for step in losses for v in step.values()):
+        raise AssertionError(f"EpdnTrainer: non-finite losses {losses}")
+    if moved < 0.99:
+        raise AssertionError(f"EpdnTrainer: parameters did not move ({moved})")
+    return row
+
+
+def phase_trainers(torch):
+    """Phase 10: every trainer of the JAX package on the card at full width
+    (n_feats 24, hidden_dim_ratio 4, patch 32, 4 heads, a 512x512 input,
+    batch 4, --remat --remat_mode branch): --model decr_vit, decs_vit,
+    decn_vit, vit and dec_mgvit through the train CLI in float32 and
+    bfloat16 (2 steps each, the float32 run saving checkpoints that the
+    test CLI reads back), each model's float32 step with the kernels
+    against the plain versions, dec_vit on the non-v3
+    iid_hlgvit_crs_gd4_cfs, --grad_accum 2, and the EpdnTrainer.  Returns
+    the launches of the CLI runs per dtype."""
+    from cfen_vit_tpu_torch import test as test_cli
+    from cfen_vit_tpu_torch.models.dehazing_model import _MODEL_DEFAULT_G
+    from cfen_vit_tpu_torch.models.registry import generator_spec
+    t0 = time.perf_counter()
+    rows, launches = {}, {"float32": defaultdict(int), "bfloat16": defaultdict(int)}
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
+    try:
+        write_hazy_pngs(os.path.join(work, "data"), train=True)
+        runs = [(m, _MODEL_DEFAULT_G[m]) for m in
+                ("decr_vit", "decs_vit", "decn_vit", "vit", "dec_mgvit")]
+        runs.append(("dec_vit", "iid_hlgvit_crs_gd4_cfs"))
+        for model, g_name in runs:
+            load = 256 if generator_spec(g_name).half_res_trunk else SIDE
+            for dtype in ("float32", "bfloat16"):
+                if model == "dec_vit" and dtype == "bfloat16":
+                    continue
+                tag = f"{model} {dtype}"
+                ckpt = os.path.join(work, f"ckpt_{model}_{dtype}")
+                save = dtype == "float32" and model != "dec_vit"
+                argv = ["--dataroot", os.path.join(work, "data"),
+                        "--name", "train", "--checkpoints_dir", ckpt,
+                        "--model", model, "--model_G", g_name,
+                        "--dataset_mode", "vit" if model == "vit" else "dec_vit",
+                        "--n_feats", "24", "--hidden_dim_ratio", "4",
+                        "--patch_size", "32", "--num_heads", "4",
+                        "--loadSize", str(load), "--sb",
+                        "--batchSize", str(BATCH), "--niter", "1",
+                        "--niter_decay", "1", "--gpu_ids", "0",
+                        "--print_freq", str(BATCH), "--compute_dtype", dtype,
+                        "--max_dataset_size", str(BATCH),
+                        "--remat", "--remat_mode", "branch",
+                        "--save_epoch_freq", "2" if save else "3",
+                        "--save_latest_freq", "100000"]
+                row, run, tr, start = _trainer_cli_run(torch, argv, tag, model)
+                for k, v in row["launches"].items():
+                    launches[dtype][k] += v
+                if dtype == "float32":
+                    row["kernels_vs_plain"] = _kernels_vs_plain(
+                        torch, tr, start, tag)
+                rows[tag] = row
+                del run, tr, start
+                torch.cuda.empty_cache()
+                if not save:
+                    continue
+                absent = [f for f in ("2_net_G.pth", "latest_net_G.pth",
+                                      "2_train_state.pt")
+                          if not os.path.exists(os.path.join(ckpt, "train", f))]
+                if absent:
+                    raise AssertionError(f"{tag}: checkpoints missing {absent}")
+                results = os.path.join(work, f"results_{model}")
+                stats = test_cli.main(argv[:4] + [
+                    "--checkpoints_dir", ckpt, "--results_dir", results]
+                    + argv[6:] + ["--out_all", "--which_epoch", "2"])
+                pngs = sorted(glob.glob(os.path.join(
+                    results, "train", "test_2", "images", "*_fake_A.png")))
+                imgs = [read_png(p) for p in pngs]
+                if len(imgs) != BATCH or any(   # --max_dataset_size
+                        im.shape != (SIDE, SIDE, 3) or im.min() == im.max()
+                        for im in imgs):
+                    raise AssertionError(f"{tag}: the trained generator gave "
+                                         f"{len(imgs)} fake_A PNGs, expected "
+                                         f"{BATCH} non-constant")
+                log("trainers", f"{tag}: test CLI read 2_net_G.pth, wrote "
+                    f"{len(imgs)} fake_A PNGs ({stats['images']} images)")
+                shutil.rmtree(ckpt, ignore_errors=True)
+        canonical = replace(generator_spec("iid_hlgvit_crs_gd4_cfs_v3"),
+                            n_feats=24, hidden_dim_ratio=4, patch_size=32,
+                            load_size=256)
+        rows["grad_accum 2"] = _accum_check(torch, canonical, work)
+        torch.cuda.empty_cache()
+        rows["epdn"] = _epdn_check(torch, work)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"trainers": rows}, default=float), flush=True)
+    log("trainers", f"phase 10 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1727,6 +2163,7 @@ def main() -> int:
     deform_launches = phase_deform(torch, results)
     default_infer, default_train = phase_defaults(torch, spec)
     variant_cli = phase_variants(torch)
+    trainer_launches = phase_trainers(torch)
     ported = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "cfen_vit_tpu"
               or m.startswith("cfen_vit_tpu.")]
@@ -1749,6 +2186,7 @@ def main() -> int:
                                               + default_infer[dtype].get(kernel, 0)),
                         "launches_variants_cli": sum(
                             run[dtype].get(kernel, 0) for run in variant_cli.values()),
+                        "launches_trainers": trainer_launches[dtype].get(kernel, 0),
                         **r})
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -4,7 +4,9 @@ train/trainer.py) on the CPU at the tiny test geometry: the visual names
 of the JAX DehazingModel for each of the seven `--model` values with
 `--out_all` on and off, the d-only fake_A equal to the all-branch one
 bit for bit, the server's reply for dec_ipt (no D branch: its refined
-dh), and the dec_vit trainer's refusal of every spec but v3."""
+dh), one `--model dec_vit` training step for each of the 17 specs beside
+v3 (finite losses, the JAX trainer's loss keys, every reachable parameter
+moved), and create_model's dispatch of the seven names."""
 
 import numpy as np
 import pytest
@@ -115,11 +117,89 @@ def test_serve_answers_dec_ipt_with_its_refined_output(tmp_path):
     np.testing.assert_array_equal(model.test(cfg)["fake_A"][0], got)
 
 
+def _jax_loss_keys(jtr, side):
+    """The JAX trainer's G and D loss keys for its spec, read from the
+    structure of _g_loss and _d_loss through jax.eval_shape (traced on
+    abstract params and batch, nothing compiled or run)."""
+    from cfen_vit_tpu.losses.vgg import vgg19_init
+    from cfen_vit_tpu.models.discriminator import define_d
+    key = jax.random.PRNGKey(0)
+    g = jax.eval_shape(lambda k: generator_init(k, jtr.spec), key)
+    d = {n: jax.eval_shape(lambda k: define_d(k, jtr.cfg), key)
+         for n in jtr.branches.values()}
+    vgg = jax.eval_shape(lambda: vgg19_init(None))
+    batch = {k: jax.ShapeDtypeStruct((2, side, side, 1 if k == "S" else 3),
+                                     np.float32) for k in "BARS"}
+    _, (losses, fakes, reals) = jax.eval_shape(jtr._g_loss, g, d, vgg, batch)
+    _, d_losses = jax.eval_shape(jtr._d_loss, d, batch, fakes, reals)
+    return set(losses) | set(d_losses)
+
+
 @pytest.mark.parametrize("name", C.VARIANTS)
-def test_dec_vit_trainer_refuses_specs_but_v3(tmp_path, name):
+def test_dec_vit_trains_every_spec(tmp_path, name):
+    """`--model dec_vit --model_G name`: one port step on the CPU with
+    finite losses, the JAX trainer's loss keys, and every parameter moved
+    but those of modules no loss reaches (models/generator.py `unreached_modules`,
+    which must not move) and of a CFS squeeze-excite whose hidden ReLU is zero on this
+    batch (checked on the forward before the step)."""
+    from cfen_vit_tpu.train.trainer import GanTrainer as JaxTrainer
+    from cfen_vit_tpu_torch.models.generator import unreached_modules
     from cfen_vit_tpu_torch.train.trainer import GanTrainer
-    cfg = TC.parse_args(["--name", "t", "--checkpoints_dir", str(tmp_path),
-                         "--model", "dec_vit", "--model_G", name,
-                         "--gpu_ids", "-1", *TINY], save_opt=False)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        GanTrainer(cfg, CPU)
+    argv = ["--name", "t", "--checkpoints_dir", str(tmp_path), "--model",
+            "dec_vit", "--model_G", name, "--gpu_ids", "-1", "--batchSize",
+            "2", *TINY]
+    tr = GanTrainer(TC.parse_args(argv, save_opt=False), CPU)
+    side = C.side(tr.spec)
+    rng = np.random.RandomState(3)
+    batch = {k: rng.randint(0, 256, (2, side, side, 1 if k == "S" else 3))
+             .astype(np.float32) / 127.5 - 1.0 for k in "BARS"}
+    tr.set_input(batch)
+    dead_relu, hooks = set(), []
+    for mname, m in tr.g.named_modules():
+        if mname.startswith("cfsm2g") and isinstance(m, torch.nn.ReLU):
+            hooks.append(m.register_forward_hook(
+                lambda mod, i, o, n=mname[:-2]: dead_relu.add(n) if not o.any()
+                else None))
+    with torch.no_grad():   # the ActNorm init pass the step would make
+        tr.g(tr._batch["B"])
+    for h in hooks:
+        h.remove()
+    before = {k: p.detach().clone() for k, p in tr.g.named_parameters()}
+    before.update({f"D.{k}": p.detach().clone()
+                   for k, p in tr.d.named_parameters()})
+    tr.optimize_parameters()
+    losses = tr.get_current_losses()
+    assert tr.step == 1 and all(np.isfinite(v) for v in losses.values()), losses
+    jtr = JaxTrainer(JC.parse_args(argv, save_opt=False))
+    assert set(losses) == _jax_loss_keys(jtr, side)
+    after = dict(tr.g.named_parameters())
+    after.update({f"D.{k}": p for k, p in tr.d.named_parameters()})
+    still = {k for k in before if torch.equal(before[k], after[k])}
+    dead = {k for k in before if k.split(".")[0] in unreached_modules(tr.spec)}
+    assert dead <= still, sorted(dead - still)
+    idle = {k for k in still - dead if k.rsplit(".", 2)[0] not in dead_relu}
+    assert not idle, sorted(idle)
+
+
+@pytest.mark.parametrize("is_train", [True, False])
+@pytest.mark.parametrize("model", sorted(_MODEL_DEFAULT_G) + ["pix2pix"])
+def test_create_model_dispatches_as_jax(tmp_path, model, is_train):
+    """The seven --model values build the trainer (isTrain) or the
+    inference wrapper on the JAX package's spec and branches; any other
+    name raises NotImplementedError in both packages."""
+    from cfen_vit_tpu.models.dehazing_model import create_model as jax_create
+    from cfen_vit_tpu_torch.models.dehazing_model import create_model
+    argv = ["--name", "t", "--checkpoints_dir", str(tmp_path), "--model",
+            model, "--gpu_ids", "-1", *TINY]
+    jcfg = JC.parse_args(argv, is_train=is_train, save_opt=False)
+    tcfg = TC.parse_args(argv, is_train=is_train, save_opt=False)
+    if model not in _MODEL_DEFAULT_G:
+        for create, cfg in ((jax_create, jcfg), (create_model, tcfg)):
+            with pytest.raises(NotImplementedError, match="not implemented"):
+                create(cfg)
+        return
+    want, got = jax_create(jcfg), create_model(tcfg, CPU)
+    assert type(got).__name__ == type(want).__name__
+    assert got.spec.name == want.spec.name
+    if is_train:
+        assert got.branches == want.branches
