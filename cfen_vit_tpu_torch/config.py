@@ -142,7 +142,8 @@ class Config:
     precision: str = "highest"        # highest: float32 without TF32
     param_dtype: str = "float32"
     compute_dtype: str = "float32"    # bfloat16: bf16 compute, f32 master
-    mesh_shape: str = ""              # data-parallel layout (not ported)
+    mesh_shape: str = ""              # data parallel: '' the launched
+                                      # world, 'N' N ranks (parallel/mesh.py)
     bench_iters: int = 20
     image_size: int = 0               # 0 => inferred from loadSize & variant trunk
     remat: bool = True                # checkpoint the generator's regions
@@ -151,7 +152,7 @@ class Config:
     self_ensemble: bool = False
     chop: bool = False
     chop_overlap: int = 64
-    trace_dir: str = ""               # profiler trace output (not ported)
+    trace_dir: str = ""               # torch.profiler trace of steps 10-15
     grad_accum: int = 1               # micro-batches per step
     vgg19_npz: str = ""               # pretrained VGG19 weights (.npz, keys
                                       # conv{k}_{i}.w HWIO / .b); falls back

@@ -1,6 +1,7 @@
 """Datasets mirroring the reference's data layer, producing NHWC numpy
 (counterpart of cfen_vit_tpu/data/dataset.py, its PIL path; the JAX
-package's C++ decoder is not ported).
+package's C++ decoder, runtime/cfen_loader.cpp, needs libjpeg's and
+libpng's headers, which the card's machine lacks, and is not ported).
 
   * DecVitDataset <- data/dec_vit_data.py: dirs `hazy` (B) always; train
     also `clear` (A), `r` (R), `s` (S); paired by index when serial (--sb),

@@ -7,6 +7,10 @@ batchSize / shuffle-unless-sb / nThreads / max_dataset_size semantics.
 
 Decode runs in a thread pool (PIL releases the GIL for decode) with a
 bounded prefetch queue, so host IO overlaps device compute.
+
+Under data parallel (parallel/mesh.py) every rank draws the same order
+(a shuffle seeded by --seed and the epoch) and decodes only its
+contiguous shard of each global batch.
 """
 
 from __future__ import annotations
@@ -48,11 +52,13 @@ def _collate(items: List[Dict]) -> Dict:
 
 
 class DataLoader:
-    def __init__(self, cfg):
+    def __init__(self, cfg, mesh=None):
         self.cfg = cfg
         self.dataset = create_dataset(cfg)
         self.batch_size = cfg.batchSize
         self.workers = max(1, int(cfg.nThreads) or 1)
+        self.mesh = mesh
+        self._epochs = 0
 
     def __len__(self):
         return int(min(len(self.dataset), self.cfg.max_dataset_size))
@@ -63,8 +69,14 @@ class DataLoader:
     def __iter__(self) -> Iterator[Dict]:
         n = len(self.dataset)
         order = list(range(n))
+        sharded = self.mesh is not None and self.mesh.size > 1
         if not self.cfg.sb:
-            np.random.shuffle(order)
+            if sharded:     # the same order on every rank
+                np.random.RandomState(
+                    int(self.cfg.seed) + self._epochs).shuffle(order)
+            else:
+                np.random.shuffle(order)
+        self._epochs += 1
         batches = [order[i:i + self.batch_size]
                    for i in range(0, n, self.batch_size)]
         # Training drops the trailing partial batch, as the JAX package
@@ -72,6 +84,8 @@ class DataLoader:
         if (getattr(self.cfg, "isTrain", False) and batches
                 and len(batches[-1]) < self.batch_size):
             batches = batches[:-1]
+        if sharded:
+            batches = [b[self.mesh.shard(self.batch_size)] for b in batches]
 
         limit = self.cfg.max_dataset_size
 
@@ -113,5 +127,5 @@ class DataLoader:
             stop.set()
 
 
-def create_dataloader(cfg) -> DataLoader:
-    return DataLoader(cfg)
+def create_dataloader(cfg, mesh=None) -> DataLoader:
+    return DataLoader(cfg, mesh)

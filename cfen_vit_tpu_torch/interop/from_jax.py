@@ -1,7 +1,8 @@
 """Weight bridge: JAX param trees (numpy arrays) -> the port's state_dicts
 (counterpart of cfen_vit_tpu/interop/torch_export.py): the generator, the
 PatchGAN discriminators, the VGG19 tower, the DCNv2 Pack and every
-network of the EPDN family (models/epdn.py).
+network of the EPDN family (models/epdn.py), and the alternate networks
+(models/networks_alt.py, models/pvt.py, ops/actnorm_pkg.py).
 
 Pure numpy with the exporter's transposes (torch_export.py _conv, _convT,
 _linear, _an), so it never imports the JAX package.  It writes exactly the
@@ -313,3 +314,113 @@ def multiscale_disc_state_dict_from_jax(params) -> dict:
         for i, conv in enumerate(scale["convs"]):
             _put(sd, f"layer{s}.{0 if i == 0 else 3 * i - 1}", _conv(conv))
     return _tensors(sd)
+
+
+def resnet_generator_state_dict_from_jax(params) -> dict:
+    """JAX resnet_generator_init tree -> models/networks_alt.py
+    ResnetGenerator: GlobalGenerator's slots with two downsamplings."""
+    return global_generator_state_dict_from_jax({
+        "head": params["head"], "down": [params["down0"], params["down1"]],
+        "blocks": params["blocks"], "up": [params["up0"], params["up1"]],
+        "tail": params["tail"]})
+
+
+def _unet(sd, prefix, p):
+    """One UnetSkipConnectionBlock: downconv at model.0 (outermost) or
+    model.1, the sub-block at model.1 or model.3, upconv at model.3 or
+    model.5 (innermost model.3)."""
+    if p["outermost"]:
+        down, sub, up = 0, 1, 3
+    elif p["innermost"]:
+        down, sub, up = 1, None, 3
+    else:
+        down, sub, up = 1, 3, 5
+    _put(sd, f"{prefix}.model.{down}", _conv(p["down"]))
+    if sub is not None:
+        _unet(sd, f"{prefix}.model.{sub}", p["sub"])
+    _put(sd, f"{prefix}.model.{up}", _convT(p["up"]))
+
+
+def unet_generator_state_dict_from_jax(params) -> dict:
+    sd: dict = {}
+    _unet(sd, "model", params)
+    return _tensors(sd)
+
+
+def classifier_state_dict_from_jax(params) -> dict:
+    sd: dict = {}
+    _put(sd, "before_linear.0", _conv(params["c0"]))
+    for n in range(3):
+        _put(sd, f"before_linear.{3 * n + 2}", _conv(params[f"c{n + 1}"]))
+        norm = params[f"in{n + 1}"]
+        sd[f"before_linear.{3 * n + 3}.weight"] = np.asarray(norm["g"])
+        sd[f"before_linear.{3 * n + 3}.bias"] = np.asarray(norm["b"])
+    _put(sd, "after_linear.0", _linear(params["l1"]))
+    _put(sd, "after_linear.1", _linear(params["l2"]))
+    return _tensors(sd)
+
+
+def _layer_norm(p):
+    return {"weight": np.asarray(p["g"]), "bias": np.asarray(p["b"])}
+
+
+def pvt_state_dict_from_jax(params) -> dict:
+    """JAX pvt_init tree -> models/pvt.py PVT."""
+    sd: dict = {}
+    for i, st in enumerate(params["stages"]):
+        pre = f"stages.{i}"
+        _put(sd, f"{pre}.proj", _conv(st["proj"]))
+        _put(sd, f"{pre}.embed_norm", _layer_norm(st["embed_norm"]))
+        sd[f"{pre}.pos"] = np.asarray(st["pos"])
+        for j, blk in enumerate(st["blocks"]):
+            bp = f"{pre}.blocks.{j}"
+            for norm in ("norm1", "norm2"):
+                _put(sd, f"{bp}.{norm}", _layer_norm(blk[norm]))
+            for lin in ("fc1", "fc2"):
+                _put(sd, f"{bp}.{lin}", _linear(blk[lin]))
+            for lin in ("q", "kv", "proj"):
+                _put(sd, f"{bp}.attn.{lin}", _linear(blk["attn"][lin]))
+            if "sr" in blk["attn"]:
+                _put(sd, f"{bp}.attn.sr", _conv(blk["attn"]["sr"]))
+                _put(sd, f"{bp}.attn.sr_norm",
+                     _layer_norm(blk["attn"]["sr_norm"]))
+    return _tensors(sd)
+
+
+def actnorm_pkg_state_dict_from_jax(params) -> dict:
+    """JAX actnorm_pkg tree {scale, bias, initialized} -> ops/actnorm_pkg.py
+    ActNorm (its float flag as the uint8 buffer)."""
+    return _tensors({"scale": np.asarray(params["scale"]),
+                     "bias": np.asarray(params["bias"]),
+                     "initialized": np.asarray(params["initialized"])
+                     .astype(np.uint8).reshape(())})
+
+
+def module_state_dict_from_jax(params, model: torch.nn.Module) -> dict:
+    """The bridge for `model`'s kind: the JAX tree of the network `model`
+    is (a checkpoint's `<epoch>_net_<name>.msgpack`) -> its state_dict."""
+    from ..models import epdn, networks_alt, pvt
+    from ..models.discriminator import Discriminator
+    from ..ops.actnorm_pkg import ActNorm
+    if isinstance(model, G.Generator):
+        return state_dict_from_jax(params, model.spec)
+    if isinstance(model, Discriminator):
+        return discriminator_state_dict_from_jax(
+            params, "basic" if "layers" in params else "pixel")
+    bridges = {networks_alt.ResnetGenerator: resnet_generator_state_dict_from_jax,
+               networks_alt.UnetGenerator: unet_generator_state_dict_from_jax,
+               networks_alt.Classifier: classifier_state_dict_from_jax,
+               pvt.PVT: pvt_state_dict_from_jax,
+               ActNorm: actnorm_pkg_state_dict_from_jax,
+               epdn.GlobalGenerator: global_generator_state_dict_from_jax,
+               epdn.Dehaze: dehaze_state_dict_from_jax,
+               epdn.LocalEnhancer: local_enhancer_state_dict_from_jax,
+               epdn.Encoder: encoder_state_dict_from_jax,
+               epdn.HeightWiseSFF: hw_sff_state_dict_from_jax,
+               epdn.OmniFeatureExtractor: omni_feature_extractor_state_dict_from_jax,
+               epdn.OmniLocalEnhancer: omni_local_enhancer_state_dict_from_jax,
+               epdn.MultiscaleDiscriminator: multiscale_disc_state_dict_from_jax}
+    for cls, bridge in bridges.items():
+        if isinstance(model, cls):
+            return bridge(params)
+    raise NotImplementedError(f"no JAX weight bridge for {type(model).__name__}")

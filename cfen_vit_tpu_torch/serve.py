@@ -21,7 +21,8 @@ group; uint8 travels between host and card both ways.  On that path two
 batches are in flight: the next batch is enqueued on the card before the
 previous one is read back, and that read-back (`.cpu()`) is where the
 batcher waits for the card.  Images are decoded and encoded with PIL (the
-JAX package's native codec is not ported).  CFEN_PALLAS_VIT=1 runs the
+JAX package's native codec needs libjpeg's and libpng's headers, which
+the card's machine lacks, and is not ported).  CFEN_PALLAS_VIT=1 runs the
 ViT blocks that K2 admits through it (models/vit.py).
 """
 

@@ -7,47 +7,67 @@
 
 `<dataroot>/{hazy,clear,r,s}/` in; `<checkpoints_dir>/<name>/` gets
 `<epoch>_net_{G,D_A,D_R,D_S}.pth`, `latest_*`, `<tag>_train_state.pt`,
-loss_log.txt and the web/ snapshots.  The epoch/iteration loop, print,
+loss_log.txt (and loss_log.jsonl, each printed step's losses at full
+precision) and the web/ snapshots.  The epoch/iteration loop, print,
 display and save frequencies, per-epoch LR steps and --continue_train are
 train.py's.  `--gpu_ids 0` (the default) trains on cuda:0 and raises
 without CUDA; `--gpu_ids -1` on the CPU.
+
+`--trace_dir DIR` traces steps 10 to 15 with torch.profiler, as the JAX
+train.py does (utils/profiling.py: DIR/trace.json, key_averages.txt,
+summary.json), each step a span `train step <n>`.  `--verbose` prints
+each network's structure and parameter count (utils/netinfo.py).
+
+Data parallel (parallel/mesh.py): under torchrun each process trains on
+its shard of every `--batchSize` batch, e.g.
+
+    torchrun --standalone --nproc_per_node 2 -m cfen_vit_tpu_torch.train \
+        --mesh_shape 2 --batchSize 8 ...    # --gpu_ids -1: gloo on the CPU
+
+and only rank 0 writes opt.txt, the log, the web page and checkpoints.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import time
 
 
 def main(argv=None) -> dict:
     """Runs the loop; returns what it printed: the losses and the seconds
     of each printed step, and the trainer."""
-    from ..config import parse_args, select_device, set_precision
+    from ..config import parse_args, set_precision
     from ..data import create_dataloader
     from ..models.dehazing_model import create_model
+    from ..parallel import mesh as M
     from ..utils import Visualizer
+    from ..utils.netinfo import print_networks
+    from ..utils.profiling import annotate, start_trace, stop_trace, tracing
 
-    cfg = parse_args(argv, is_train=True)
-    if cfg.trace_dir:
-        raise NotImplementedError("--trace_dir is not ported yet (ROADMAP "
-                                  "Queue A item 11)")
-    device = select_device(cfg.gpu_ids)
+    lead = int(os.environ.get("RANK", 0)) == 0
+    cfg = parse_args(argv, is_train=True, save_opt=lead)
+    mesh = M.make_mesh(cfg.mesh_shape, cfg.batchSize)
+    device = M.device_for(mesh, cfg.gpu_ids)
+    mesh = M.init(mesh, device)
     set_precision(cfg.precision)
-    data_loader = create_dataloader(cfg)
+    data_loader = create_dataloader(cfg, mesh)
     dataset = data_loader.load_data()
     logging.info("#training images = %d", len(data_loader))
 
     model = create_model(cfg, device)
     model.setup(cfg)
-    visualizer = Visualizer(cfg)
-    if cfg.verbose:
-        for name, net in (("G", model.g), *((f"D_{k}", d) for k, d in
-                                             model.d.items())):
-            n = sum(p.numel() for p in net.parameters())
-            print(f"[Network {name}] Total number of parameters : "
-                  f"{n / 1e6:.3f} M")
+    visualizer = Visualizer(cfg) if lead else None
+    if mesh.launched and lead:
+        import torch.distributed as dist
+        print(f"data parallel: {mesh.size} rank(s), backend "
+              f"{dist.get_backend()}, global batch {cfg.batchSize}")
+    if cfg.verbose and lead:
+        print_networks({"G": model.g, **{f"D_{k}": d for k, d in
+                                         model.d.items()}}, verbose=True)
     total_steps = 0
-    log = {"losses": [], "step_seconds": [], "model": model}
+    log = {"losses": [], "step_seconds": [], "model": model, "trace": None}
 
     for epoch in range(cfg.epoch_count, cfg.niter + cfg.niter_decay + 1):
         epoch_start_time = time.time()
@@ -57,11 +77,17 @@ def main(argv=None) -> dict:
             iter_start_time = time.time()
             if total_steps % cfg.print_freq == 0:
                 t_data = iter_start_time - iter_data_time
-            visualizer.reset()
             total_steps += cfg.batchSize
             epoch_iter += cfg.batchSize
-            model.set_input(data)
-            model.optimize_parameters(cfg)
+            if cfg.trace_dir and lead and total_steps == 10 * cfg.batchSize:
+                start_trace(cfg.trace_dir)
+            with annotate(f"train step {total_steps // cfg.batchSize}"):
+                model.set_input(data)
+                model.optimize_parameters(cfg)
+            if not lead:
+                iter_data_time = time.time()
+                continue
+            visualizer.reset()
 
             if total_steps % cfg.display_freq == 0:
                 save_result = total_steps % cfg.update_html_freq == 0
@@ -73,6 +99,10 @@ def main(argv=None) -> dict:
                 t = (time.time() - iter_start_time) / cfg.batchSize
                 visualizer.print_current_losses(epoch, epoch_iter, losses,
                                                 t, t_data)
+                with open(os.path.join(cfg.checkpoints_dir, cfg.name,
+                                       "loss_log.jsonl"), "a") as fh:
+                    fh.write(json.dumps({"epoch": epoch, "iters": epoch_iter,
+                                         **losses}) + "\n")
                 log["losses"].append(losses)
                 log["step_seconds"].append(time.time() - iter_start_time)
 
@@ -80,15 +110,20 @@ def main(argv=None) -> dict:
                 logging.info("saving the latest model (epoch %d, "
                              "total_steps %d)", epoch, total_steps)
                 model.save_networks("latest")
+            if tracing() and total_steps == 15 * cfg.batchSize:
+                log["trace"] = stop_trace()     # after the step's print
             iter_data_time = time.time()
 
-        if epoch % cfg.save_epoch_freq == 0:
+        if epoch % cfg.save_epoch_freq == 0 and lead:
             logging.info("saving the model at the end of epoch %d, iters %d",
                          epoch, total_steps)
             model.save_networks("latest")
             model.save_networks(epoch)
 
-        print(f"End of epoch {epoch} / {cfg.niter + cfg.niter_decay} \t "
-              f"Time Taken: {int(time.time() - epoch_start_time)} sec")
+        if lead:
+            print(f"End of epoch {epoch} / {cfg.niter + cfg.niter_decay} \t "
+                  f"Time Taken: {int(time.time() - epoch_start_time)} sec")
         model.update_learning_rate()
+    if tracing():              # the run ended before step 15
+        log["trace"] = stop_trace()
     return log

@@ -12,7 +12,9 @@ JSON lines, then a summary line.
 
 The generator runs at full width (n_feats 24, hidden_dim_ratio 4, 4
 heads); a half-res-trunk spec takes loadSize size / 2, the others size,
-and the LViT tile is loadSize / 8.  `--gpu_ids -1` runs on the CPU.
+and the LViT tile is loadSize / 8.  `--model epdn` trains the EpdnTrainer
+(LocalEnhancer, ngf 32; its PSNR is of the enhanced output).  `--gpu_ids
+-1` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -71,6 +73,16 @@ def build_trainer(model: str, batch: int, size: int, dtype: str, remat: bool,
     from ..models.dehazing_model import _MODEL_DEFAULT_G, create_model
     from ..models.registry import generator_spec
 
+    if model == "epdn":     # the EpdnTrainer (LocalEnhancer, --epdn_ngf 32)
+        from .pix2pixhd import EpdnTrainer
+        cfg = parse_args(["--name", "overfit", "--checkpoints_dir",
+                          tempfile.mkdtemp(), "--loadSize", str(size),
+                          "--patch_size", str(size // 8),
+                          "--batchSize", str(batch), "--pool_size",
+                          str(max(8, batch)), "--compute_dtype", dtype,
+                          "--gpu_ids", gpu_ids], save_opt=False)
+        set_precision(cfg.precision)
+        return EpdnTrainer(cfg, select_device(cfg.gpu_ids))
     name = _MODEL_DEFAULT_G.get(model) or "iid_hlgvit_crs_gd4_cfs_v3"
     load = size // 2 if generator_spec(name).half_res_trunk else size
     argv = ["--name", "overfit", "--checkpoints_dir", tempfile.mkdtemp(),

@@ -77,6 +77,7 @@ class EpdnTrainer:
         self.step = 0
         self._batch: Dict[str, torch.Tensor] = {}
         self._losses: Dict[str, torch.Tensor] = {}
+        self._enhance = None
 
     def load_state_dicts(self, g=None, d=None, vgg=None) -> None:
         for net, sd in ((self.g, g), (self.d, d), (self.vgg, vgg)):
@@ -85,6 +86,7 @@ class EpdnTrainer:
 
     def _g_loss(self, hazy, real):
         fake, enhance = self.g(hazy)
+        self._enhance = enhance.detach()
         pred_fake = self.d(torch.cat([hazy, fake], dim=1), get_interm_feat=True)
         with torch.no_grad():
             pred_real = self.d(torch.cat([hazy, real], dim=1),
@@ -132,3 +134,12 @@ class EpdnTrainer:
 
     def get_current_losses(self) -> Dict[str, float]:
         return {k: float(v) for k, v in self._losses.items()}
+
+    def get_current_visuals(self) -> Dict:
+        """NHWC numpy: the hazy input, its clear target and the enhanced
+        output (the one the L2 term trains) as fake_A."""
+        def nhwc(t):
+            return t.float().permute(0, 2, 3, 1).cpu().numpy()
+        return {"real_B": nhwc(self._batch["B"]),
+                "real_A": nhwc(self._batch["A"]),
+                "fake_A": nhwc(self._enhance)}

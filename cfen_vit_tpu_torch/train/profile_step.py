@@ -9,7 +9,8 @@ train CLI builds it (remat branch, pool 50), on a seeded batch of
 uint8-representable images made on the host.  Per dtype it prints: the
 step time (CUDA-synchronised host clock, mean of --steps steps after two
 warm-up steps), the peak device memory of a step, and a torch.profiler
-split of one step's device time by kernel group, with the device's busy
+split of one step's device time by kernel group (utils/profiling.py
+`GROUPS`), with the device's busy
 share (summed kernel time over the step's wall time).  The groups and the
 top kernels are also written to DIR/profile_step_<dtype>.json.  Needs one
 card; without one it raises.
@@ -20,7 +21,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import subprocess
 import time
 from dataclasses import replace
@@ -28,30 +28,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-# kernel name -> group, first match wins
-_GROUPS = (
-    ("K5 mrf forward", r"mrf_fwd_kernel"),
-    ("K5 mrf do", r"mrf_bwd_kernel<.*true>"),
-    ("K5 mrf dt", r"mrf_bwd_kernel<.*false>"),
-    ("K1 attention", r"attn_kernel"),
-    ("K3 tail", r"tail_kernel"),
-    ("K4 stem", r"stem_kernel"),
-    ("convolution (cuDNN)", r"conv|cudnn|implicit|wgrad|dgrad|fprop|xmma|"
-                            r"winograd|im2col|nchw|nhwc"),
-    ("GEMM (cuBLAS)", r"gemm|sm90_|cutlass|cublas|splitK"),
-    ("reduction", r"reduce|Reduce|sum|norm"),
-    ("copy / cat / index", r"copy|Copy|cat|Cat|index|Index|scatter|gather|"
-                           r"transpose|permute"),
-    ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"),
-)
-
-
-def _group(name: str) -> str:
-    for group, pattern in _GROUPS:
-        if re.search(pattern, name):
-            return group
-    return "other"
-
+from ..utils.profiling import kernel_split
 
 def _trainer(dtype: str, batch: int):
     from ..config import Config
@@ -97,26 +74,14 @@ def profile(dtype: str, batch: int, steps: int, out_dir: str) -> dict:
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups, kernels, n_kernels = {}, [], 0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if (dev_us <= 0 or "#" in ev.key
-                or ev.device_type != torch.autograd.DeviceType.CUDA):
-            continue             # "#": a user annotation, not a kernel
-        n_kernels += ev.count
-        g = _group(ev.key)
-        groups[g] = groups.get(g, 0.0) + dev_us / 1e3
-        kernels.append((dev_us / 1e3, ev.count, ev.key[:120]))
-    kernels.sort(reverse=True)
-    busy = sum(groups.values())
+    split = kernel_split(prof.key_averages())
+    busy = split["kernel_ms"]
     res = {"dtype": dtype, "batch": batch, "step_s": times,
            "mean_step_s": float(np.mean(times)), "peak_gib": peak,
            "profiled_step_wall_ms": wall * 1e3, "kernel_ms": busy,
-           "busy_share": busy / (wall * 1e3), "kernels": n_kernels,
-           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-           "top": kernels[:25], "losses": tr.get_current_losses()}
+           "busy_share": busy / (wall * 1e3), "kernels": split["launches"],
+           "groups_ms": split["groups_ms"], "top": split["top"],
+           "losses": tr.get_current_losses()}
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_step_{dtype}.json"), "w") as fh:
         json.dump(res, fh, indent=1)

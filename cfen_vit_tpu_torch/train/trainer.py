@@ -53,6 +53,11 @@ without grad: the G loss differentiates G only).  The D loss runs in
 float32 on the float32 D, as JAX's type promotion makes it there.  The
 ActNorms are initialised from the whole first batch in float32 before
 the first step.
+Data parallel (`--mesh_shape`, parallel/mesh.py): `set_input` takes this
+rank's shard of the global batch; the grads of G and the Ds and the
+losses are mean-reduced over the ranks before the skip gate, the ID-MRF
+term (a sum over the batch) is scaled by the world size first, and the
+ActNorm init pass and the pools take the global batch; only rank 0 saves.
 Batches travel as uint8 when that is lossless and are normalised on the
 device.  Pools are device ring buffers in the compute dtype, updated in
 place, sampled by a torch.Generator.
@@ -77,6 +82,7 @@ from ..models.generator import Generator, init_weights
 from ..models.registry import generator_spec
 from ..ops.gradient import color_gradient
 from ..ops.ssim import ssim
+from ..parallel import mesh as M
 from .checkpoint import load_train_state, save_net, save_train_state
 from .schedule import lr_for_epoch
 
@@ -168,6 +174,10 @@ class GanTrainer:
         self.loss_set = {"vit": "mgvit", "dec_mgvit": "decmgvit"}.get(
             cfg.model, "dec")
         self.accum = max(1, int(cfg.grad_accum))
+        self.mesh = M.init(M.make_mesh(cfg.mesh_shape, cfg.batchSize), device)
+        if (cfg.batchSize // self.mesh.size) % self.accum:
+            raise ValueError(f"--grad_accum {self.accum} does not divide the "
+                             f"per-rank batch {cfg.batchSize // self.mesh.size}")
         # generator output -> fake name; dec_ipt has no d, so its refined
         # dh is A (ref dec_mgvit_model.py:90)
         self.branches = {"d" if "d" in self.spec.branches else "dh": "A"}
@@ -270,7 +280,10 @@ class GanTrainer:
             if self.loss_set == "dec":
                 losses[f"ssim_{lk}"] = (1.0 - ssim(real, fake)) * 3
         if self.loss_set == "dec":
-            losses["p"] = idmrf_loss(self.vgg, reals["A"], fakes["A"]) * 0.06
+            # a sum over the batch: the ranks' mean of W x their sums is
+            # the global batch's sum
+            losses["p"] = idmrf_loss(self.vgg, reals["A"], fakes["A"]) * (
+                0.06 * self.mesh.size)
             losses["s"] = semantic_consistency_loss(self.vgg, reals["A"],
                                                     fakes["A"]) * 2
         # JAX casts the terms to float32 before their sum, but MGVIT's, which
@@ -300,9 +313,10 @@ class GanTrainer:
     @torch.no_grad()
     def _init_state(self, x: torch.Tensor) -> None:
         """Data-dependent ActNorm init from the first batch (float32, all
-        branches, no remat); pools shaped after it."""
+        branches, no remat; the global batch under data parallel); pools
+        shaped after it."""
         if not self.g.actnorms_ready():
-            self.g(x)
+            self.g(M.gather(x) if self.mesh.launched else x)
         for name in self.branches.values():
             self.pools[name] = pool_init(self.cfg.pool_size, x.shape[1:],
                                          self.dtype, self.device)
@@ -338,23 +352,29 @@ class GanTrainer:
                  for i in range(self.accum)]
         losses = {k: torch.stack([l[k] for l, _ in steps]).mean()
                   for k in steps[0][0]}
+        if g_c is not self.g:
+            for pm, acc in zip(self.g.parameters(), g_grads):
+                pm.grad = acc
+        params = [p for opt in (self.g_opt, self.d_opt)
+                  for group in opt.param_groups for p in group["params"]]
+        for p in params:                # every parameter moves, as in JAX
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif self.accum > 1:
+                p.grad /= self.accum
+        if self.mesh.launched:
+            M.allreduce_mean_([p.grad for p in params] + list(losses.values()))
         gl = float(losses["G"])
         if math.isfinite(gl) and gl < float(self.cfg.skip_threshold):
             with torch.no_grad():
                 for _, fakes in steps:
                     for name, fake in fakes.items():
-                        pool_query(self.pools[name], fake, self.pool_gen)
-            if g_c is not self.g:
-                for pm, acc in zip(self.g.parameters(), g_grads):
-                    pm.grad = acc
+                        pool_query(self.pools[name], M.gather(fake)
+                                   if self.mesh.launched else fake,
+                                   self.pool_gen)
             for opt in (self.g_opt, self.d_opt):
                 for group in opt.param_groups:
                     group["lr"] = self.lr
-                    for p in group["params"]:   # every parameter moves,
-                        if p.grad is None:      # as in JAX
-                            p.grad = torch.zeros_like(p)
-                        elif self.accum > 1:
-                            p.grad /= self.accum
                 opt.step()
             self.step += 1
         for module in (g_c, self.g, self.d):
@@ -380,6 +400,8 @@ class GanTrainer:
         return self.image_paths
 
     def save_networks(self, epoch) -> None:
+        if self.mesh.rank:
+            return
         save_net(self.cfg, epoch, "G", self.g)
         for name, d in self.d.items():
             save_net(self.cfg, epoch, f"D_{name}", d)

@@ -110,13 +110,34 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      algorithms (each loss term within 1e-3 relative; ||g - p|| / ||p||
      within 1e-2 over G and 5e-4 over each D, and each tensor within 1e-1
      of its norm plus 1e-3 of the network's rms tensor norm, the worst
-     tensor logged). Then --model dec_vit on the non-v3
-     iid_hlgvit_crs_gd4_cfs (float32, the same gates); --grad_accum 2 on
-     the canonical v3 against accum 1 from the same weights (pools take 4
-     images, L2_a, ssim_a, GAN_a, vgg_a within 5e-3, p halved, a lower
-     peak); the EpdnTrainer at batch 4, 512x512, float32, 2 steps (finite
-     losses, the parameters moved). It logs each run's s/step after step 0
-     and peak memory, and a `{"trainers": ...}` line.
+     tensor logged); decr_vit's float32 step repeated DECR_REPEATS times
+     on each path, every run inside those bars, and its ID-MRF near-ties
+     (`_decr_ties`: the plain step under input noise a millionth of the
+     input, the argmax and argmin choices K5 and plain make differently,
+     against float64); two more steps of
+     decr_vit and dec_mgvit in each dtype under torch.profiler (the busy
+     share and the time by kernel group). Then --model dec_vit on the
+     non-v3 iid_hlgvit_crs_gd4_cfs (both dtypes, the same gates);
+     --grad_accum 2 on the canonical v3 against accum 1 from the same
+     weights (pools take 4 images, L2_a, ssim_a, GAN_a, vgg_a within 5e-3,
+     p halved, a lower peak); the EpdnTrainer at batch 4, 512x512, 2 steps
+     in each --compute_dtype (finite losses, the parameters moved). It logs
+     each run's s/step after step 0 and peak memory, and a
+     `{"trainers": ...}` line;
+ 11. the rest of the port: the train CLI on the canonical v3 at 512x512,
+     batch 4, bf16, 16 steps with --trace_dir and --verbose (a trace of
+     steps 10-15 naming K1, K3, K4 and K5's three kernels, its busy share
+     and time by kernel group; the JAX package's per-network totals);
+     `torchrun --standalone --nproc_per_node 1 -m cfen_vit_tpu_torch.train
+     --mesh_shape 1` on NCCL, 2 float32 steps, losses within 1e-3 of the
+     same steps without torchrun, and --mesh_shape 2 raising on one card;
+     item 9's modules (ResnetGenerator ngf 64 with 9 blocks and
+     UnetGenerator num_downs 8 at 256x256 batch 4, the Classifier at
+     32x32 batch 64, pvt_tiny at 224x224 batch 8, mind_loss at 512x512,
+     adain on [4, 512, 64, 64]), one forward and backward each in float32
+     and bfloat16, finite, bf16 outputs within ALT_BF16_TOL and input
+     grads at cosine ALT_GRAD_COS or above, timed; a
+     `{"port_rest": ...}` line.
 
 Phases 1-5 run with K2 off (CFEN_PALLAS_VIT unset), as by default.
 The last two lines are a JSON object of the kernels' results and
@@ -238,9 +259,13 @@ def phase_env(torch):
         pil = f"Pillow {PIL.__version__}"
     except ImportError:
         pil = "Pillow missing"
+    # the JAX package's native codec links libjpeg and libpng: their
+    # headers decide whether it could build here (ROADMAP Queue A)
+    headers = ", ".join(f"{h} {'present' if os.path.exists('/usr/include/' + h) else 'absent'}"
+                        for h in ("jpeglib.h", "png.h"))
     log("env", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{nvcc[-1]}, {pil}, device {torch.cuda.get_device_name(0)} "
-        f"x{torch.cuda.device_count()}")
+        f"{nvcc[-1]}, {pil}, {headers}, device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
 
 def phase_build():
@@ -1743,11 +1768,13 @@ MRF_COUNTERS = ("mrf_fwd", "mrf_bwd_do", "mrf_bwd_dt")
 # each within TRAINER_TENSOR_TOL of its own norm plus TRAINER_TENSOR_FLOOR
 # of the network's root-mean-square tensor norm (the floor is for tensors
 # whose exact grad is zero, such as the biases before an InstanceNorm,
-# which hold only float noise).  The readings repeat from run to run but
-# for a discrete event in decr_vit's grads in one run of three (G 5.3e-3,
-# one tensor 4.1e-2; PERF.md section 6); the limits stand about 2x above
-# it, and a wiring fault (a sign, a missing or misrouted grad) moves a
-# tensor by its whole norm
+# which hold only float noise).  decr_vit reads G 5.3e-3 and one tensor
+# 4.1e-2 at its seeded batch, every run: ID-MRF's column argmax and row
+# argmin sit at near-ties there, which any rounding-level change of the
+# inputs decides another way (the plain path against itself with 1e-6
+# noise on the input moves as far; ROADMAP Queue C); the limits stand
+# about 2x above it, and a wiring fault (a sign, a missing or misrouted
+# grad) moves a tensor by its whole norm
 TRAINER_LOSS_TOL, TRAINER_G_TOL, TRAINER_D_TOL = 1e-3, 1e-2, 5e-4
 TRAINER_TENSOR_TOL, TRAINER_TENSOR_FLOOR = 1e-1, 1e-3
 # --grad_accum 2 against accum 1: the mean-normalised terms (JAX's bar,
@@ -1854,6 +1881,133 @@ def _kernels_vs_plain(torch, tr, start, tag):
         raise AssertionError(f"{tag}: kernels vs plain, loss {loss_err}, "
                              f"grads {grads}")
     return {"loss": loss_err, "grads": grads, "default_algorithms": spread}
+
+
+# the near-ties of ID-MRF behind decr_vit's kernels-against-plain reading
+# (ROADMAP Queue C): the noise put on the hazy input and its draws, and the
+# block the plain path takes its column maxima over (ops/cuda_mrf.py
+# mrf_core_plain)
+TIES_NOISE, TIES_DRAWS, TIES_BLOCK = 1e-6, 4, 2048
+
+
+def _f64_top2(torch, values, largest):
+    """Top two of each column ([P] winners, relative gaps) in float64."""
+    top = values.topk(2, dim=0, largest=largest)
+    gap = (top.values[0] - top.values[1]).abs() / top.values[0].abs().clamp_min(1e-30)
+    return top.indices[0], gap
+
+
+def _decr_ties(torch, tr, start, tag):
+    """decr_vit's float32 step from its seeded weights (cuDNN's
+    deterministic algorithms), on the seeded batch and on TIES_DRAWS
+    draws of TIES_NOISE added to its hazy input: each draw's plain step
+    against the seeded batch's, and the kernels against plain on it (a
+    grad that moves by the whole kernels-vs-plain gap under noise a
+    millionth of the input sits at a discontinuity); then at relu4_1's
+    ID-MRF inputs of the plain step, where K5's and the
+    plain path's grads of o differ (the largest row's share), and where
+    their discrete choices differ: each column's argmax q* (the plain
+    path's own blocks) and each row's argmin p* (its float32 distances),
+    with the top-two gap of each such choice in float64 and which path
+    float64 agrees with."""
+    from cfen_vit_tpu_torch.ops import cuda_mrf
+    tr.g.load_state_dict({k: v for k, v in start.items() if not k.startswith("D.")})
+    tr.d.load_state_dict({k[2:]: v for k, v in start.items() if k.startswith("D.")})
+    batch = _resident(torch, tr)
+    tr._init_state(batch["B"])
+    caps = []
+    plain_core = cuda_mrf.mrf_core_plain
+
+    def capture(o, t):
+        caps.append((o.detach().clone(), t.detach().clone()))
+        return plain_core(o, t)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    draws = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _plain_versions(torch), mock.patch.object(cuda_mrf, "mrf_core", capture):
+            _, plain = _step_losses_and_grads(torch, tr, batch)
+        _, kernels = _step_losses_and_grads(torch, tr, batch)
+        seeded = _grad_errors(kernels, plain)["G"]["relative"]
+        del kernels
+        for _ in range(TIES_DRAWS):
+            noisy = dict(batch, B=batch["B"] + TIES_NOISE * torch.randn(
+                batch["B"].shape, generator=g, device="cuda"))
+            with _plain_versions(torch):
+                _, plain_noisy = _step_losses_and_grads(torch, tr, noisy)
+            _, kernels_noisy = _step_losses_and_grads(torch, tr, noisy)
+            moved = _grad_errors(plain_noisy, plain)["G"]
+            draws.append({"plain_moved_G": moved["relative"],
+                          "plain_moved_worst": [moved["worst_tensor"],
+                                                moved["worst_relative"]],
+                          "kernels_vs_plain_G": _grad_errors(
+                              kernels_noisy, plain_noisy)["G"]["relative"]})
+            del plain_noisy, kernels_noisy
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del plain
+    o, t = (x.contiguous() for x in caps[1])          # relu4_1
+    n, p, _ = o.shape
+    do = []
+    for core in (cuda_mrf.mrf_core_plain, cuda_mrf.MrfCore.apply):
+        x = o.clone().requires_grad_(True)
+        core(x, t).backward()
+        do.append(x.grad)
+    rows = (do[1] - do[0]).norm(dim=2)
+    worst = int(rows.flatten().argmax())
+    row_share = float(rows.flatten()[worst] / (do[1] - do[0]).norm())
+    _, _, p_star, _, q_star = cuda_mrf.mrf_forward_stats(o, t)
+    cols = {"flips": 0, "k5_f64": 0, "plain_f64": 0, "gaps": []}
+    rws = {"flips": 0, "k5_f64": 0, "plain_f64": 0, "gaps": []}
+    # the plain path's own arithmetic: its q-blocks over the whole batch
+    best = arg = None
+    argmin = []
+    for q0 in range(0, p, TIES_BLOCK):
+        v, a = cuda_mrf._mrf_rows(o[:, q0:q0 + TIES_BLOCK], t).max(dim=1)
+        a = a + q0
+        arg = a if arg is None else torch.where(v > best, a, arg)
+        best = v if best is None else torch.maximum(best, v)
+        cos = o[:, q0:q0 + TIES_BLOCK].float() @ t.float().transpose(1, 2)
+        argmin.append((-(cos - 1.0) / 2.0).clamp_min(0.0).argmin(dim=2))
+        del cos
+    argmin = torch.cat(argmin, dim=1)
+    for b in range(n):
+        cos64 = o[b].double() @ t[b].double().T
+        cd64 = (-(cos64 - 1.0) / 2.0).clamp_min(0.0)
+        rel = cd64 / (cd64.amin(dim=1, keepdim=True) + cuda_mrf.EPS)
+        be = torch.exp((1.0 - rel) / 0.5)
+        cs64 = be / be.sum(dim=1, keepdim=True)
+        for acc, k5, plain_pick, values, largest in (
+                (cols, q_star[b], arg[b], cs64, True),
+                (rws, p_star[b], argmin[b], cd64.T, False)):
+            win, rgap = _f64_top2(torch, values, largest)
+            flip = k5 != plain_pick
+            acc["flips"] += int(flip.sum())
+            acc["k5_f64"] += int((flip & (k5 == win)).sum())
+            acc["plain_f64"] += int((flip & (plain_pick == win)).sum())
+            acc["gaps"] += rgap[flip].tolist()
+        del cos64, cd64, rel, be, cs64
+    out = {"kernels_vs_plain_G": seeded, "draws": draws,
+           "do_relative": float((do[1] - do[0]).norm() / do[0].norm()),
+           "do_worst_row": [worst // p, worst % p, row_share]}
+    for name, acc in (("column_argmax", cols), ("row_argmin", rws)):
+        gaps = acc.pop("gaps")
+        out[name] = {**acc, "f64_gap_min": min(gaps, default=None),
+                     "f64_gap_max": max(gaps, default=None)}
+    log("trainers", f"{tag} near-ties: kernels against plain G {seeded:.4g} "
+        f"on the seeded batch; with {TIES_NOISE} of noise on its input, draw "
+        "by draw, the plain step against the seeded batch's (G, worst "
+        "tensor) and the kernels against plain: " + "; ".join(
+            f"{d['plain_moved_G']:.4g} ({d['plain_moved_worst'][0]} "
+            f"{d['plain_moved_worst'][1]:.4g}), {d['kernels_vs_plain_G']:.4g}"
+            for d in draws)
+        + f"; relu4_1 d(o) K5 against plain {out['do_relative']:.4g} of its norm, row "
+        f"(n, q) {out['do_worst_row'][:2]} holding {row_share:.4f} of the "
+        f"difference; choices that differ (K5 against plain, the ones float64 "
+        f"sides with, float64 top-two gaps): columns' argmax {out['column_argmax']}, "
+        f"rows' argmin {out['row_argmin']}")
+    return out
 
 
 def _resident(torch, tr, n=BATCH):
@@ -2001,14 +2155,16 @@ def _accum_check(torch, spec, tmp):
             "differences": errs}
 
 
-def _epdn_check(torch, tmp):
-    """EpdnTrainer: 2 steps at 512x512, batch 4, float32 on a resident
-    batch: finite losses, the parameters moved."""
+def _epdn_check(torch, tmp, dtype="float32"):
+    """EpdnTrainer: 2 steps at 512x512, batch 4, on a resident batch
+    (`dtype` its --compute_dtype: in bfloat16 the pool holds bf16, the
+    networks stay float32, as in JAX): finite losses, the parameters
+    moved."""
     from cfen_vit_tpu_torch.config import parse_args
     from cfen_vit_tpu_torch.train.pix2pixhd import EpdnTrainer
     cfg = parse_args(["--name", "epdn", "--checkpoints_dir", tmp,
-                      "--batchSize", str(BATCH), "--gpu_ids", "0"],
-                     save_opt=False)
+                      "--batchSize", str(BATCH), "--gpu_ids", "0",
+                      "--compute_dtype", dtype], save_opt=False)
     tr = EpdnTrainer(cfg, torch.device("cuda"))
     start = {k: v.clone() for net in (tr.g, tr.d)
              for k, v in net.state_dict(prefix=f"{type(net).__name__}.").items()}
@@ -2032,7 +2188,7 @@ def _epdn_check(torch, tmp):
            "parameters": sum(p.numel() for p in tr.g.parameters())}
     log("trainers", f"EpdnTrainer (LocalEnhancer ngf {cfg.epdn_ngf}, "
         f"{row['parameters']} G parameters, {cfg.num_D}-scale D, batch "
-        f"{BATCH}, {SIDE}x{SIDE}, float32): step seconds "
+        f"{BATCH}, {SIDE}x{SIDE}, {dtype}): step seconds "
         f"{[round(x, 4) for x in seconds]}, peak {row['peak_gib']:.2f} GiB, "
         f"share of tensors moved {moved:.3f}; losses {losses}")
     if any(not np.isfinite(v) for step in losses for v in step.values()):
@@ -2066,8 +2222,6 @@ def phase_trainers(torch):
         for model, g_name in runs:
             load = 256 if generator_spec(g_name).half_res_trunk else SIDE
             for dtype in ("float32", "bfloat16"):
-                if model == "dec_vit" and dtype == "bfloat16":
-                    continue
                 tag = f"{model} {dtype}"
                 ckpt = os.path.join(work, f"ckpt_{model}_{dtype}")
                 save = dtype == "float32" and model != "dec_vit"
@@ -2091,6 +2245,12 @@ def phase_trainers(torch):
                 if dtype == "float32":
                     row["kernels_vs_plain"] = _kernels_vs_plain(
                         torch, tr, start, tag)
+                if model == "decr_vit" and dtype == "float32":
+                    row["repeats"] = _repeat_kernels_vs_plain(
+                        torch, tr, start, tag)
+                    row["ties"] = _decr_ties(torch, tr, start, tag)
+                if model in ("decr_vit", "dec_mgvit"):
+                    row["trace"] = _traced_steps(torch, tr, tag)
                 rows[tag] = row
                 del run, tr, start
                 torch.cuda.empty_cache()
@@ -2122,13 +2282,363 @@ def phase_trainers(torch):
                             load_size=256)
         rows["grad_accum 2"] = _accum_check(torch, canonical, work)
         torch.cuda.empty_cache()
-        rows["epdn"] = _epdn_check(torch, work)
-        torch.cuda.empty_cache()
+        for dtype in ("float32", "bfloat16"):
+            rows[f"epdn {dtype}"] = _epdn_check(torch, work, dtype)
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"trainers": rows}, default=float), flush=True)
     log("trainers", f"phase 10 in {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 11: tracing, data parallel, the alternate networks and losses
+# --------------------------------------------------------------------------
+
+# kernel groups (utils/profiling.py GROUPS) a traced training step of an
+# ID-MRF loss set must name
+TRACE_KERNELS = ("K1 attention", "K3 tail", "K4 stem", "K5 mrf forward",
+                 "K5 mrf do", "K5 mrf dt")
+# --model decr_vit's float32 step, kernels against plain, repeated from the
+# same weights and data (phase 10's bars)
+DECR_REPEATS = 5
+# item 9's modules, bfloat16 against float32: ||bf16 - fp32|| / ||fp32||
+# of each output, and the cosine of the input's grads (a bf16 backward
+# through nine ResnetBlocks and their InstanceNorms read 0.247 relative,
+# cosine about 0.97, in run Q2; a sign or a lost grad reads -1 or 0)
+ALT_BF16_TOL, ALT_GRAD_COS = 5e-2, 0.9
+DP_LOSS_TOL = 1e-3        # torchrun's two steps against one process's
+
+
+def _log_trace(tag: str, s: dict) -> None:
+    from cfen_vit_tpu_torch.utils.profiling import group_of
+    other = [name for _, _, name in s["top"] if group_of(name) == "other"]
+    log("trace", f"{tag}: {s['steps']} traced, {s['wall_ms']:.1f} ms wall, "
+        f"{s['kernel_ms']:.1f} ms of kernels ({s['launches']} launches), "
+        f"busy {100 * s['busy_share']:.1f}%; ms by group: " + ", ".join(
+            f"{g} {ms:.3f}" for g, ms in s["groups_ms"].items())
+        + f"; the largest of 'other': {other[:3]}"
+        + (f"; written in {s['write_ms']} ms" if "write_ms" in s else ""))
+
+
+def _traced_steps(torch, tr, tag, steps=2):
+    """`steps` more steps of a trainer the train CLI built, on a resident
+    batch (one untraced first), under torch.profiler's CUDA activity (the
+    host's ops left out: parsing them costs more than the steps): the
+    window's split by kernel group and the card's busy share, beside the
+    untraced step's time."""
+    from torch.profiler import ProfilerActivity, profile
+    from cfen_vit_tpu_torch.utils.profiling import kernel_split
+    tr._batch = _resident(torch, tr)
+    t0 = time.perf_counter()
+    tr.optimize_parameters()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tr.optimize_parameters()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    s = {"steps": steps, "wall_ms": wall_ms, "untraced_step_s": untraced,
+         **kernel_split(prof.key_averages())}
+    s["busy_share"] = s["kernel_ms"] / wall_ms
+    s["busy_share_of_untraced"] = s["kernel_ms"] / (steps * untraced * 1e3)
+    _log_trace(tag, s)
+    log("trace", f"{tag}: the untraced step {untraced:.4f} s, its kernels "
+        f"busy {100 * s['busy_share_of_untraced']:.1f}% of it")
+    if s["kernel_ms"] <= 0:
+        raise AssertionError(f"{tag}: the trace holds no kernel time")
+    return {k: v for k, v in s.items() if k != "top"}
+
+
+def _repeat_kernels_vs_plain(torch, tr, start, tag, runs=DECR_REPEATS):
+    """The float32 step from the seeded weights on cuDNN's deterministic
+    algorithms, `runs` times with the kernels and `runs` times on the plain
+    versions, interleaved: each run's kernels-vs-plain errors (phase 10's
+    bars, `_grad_errors`) and each path's spread against its own first
+    run."""
+    tr.g.load_state_dict({k: v for k, v in start.items() if not k.startswith("D.")})
+    tr.d.load_state_dict({k[2:]: v for k, v in start.items() if k.startswith("D.")})
+    batch = _resident(torch, tr)
+    tr._init_state(batch["B"])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rows, first = [], {}
+    try:
+        for run in range(runs):
+            _, got = _step_losses_and_grads(torch, tr, batch)
+            with _plain_versions(torch):
+                _, want = _step_losses_and_grads(torch, tr, batch)
+            errs = _grad_errors(got, want)
+            spread = {}
+            for path, grads in (("kernels", got), ("plain", want)):
+                if path in first:
+                    spread[path] = _grad_errors(grads, first[path])["G"]["relative"]
+                else:
+                    first[path] = grads
+            rows.append({"G": errs["G"]["relative"],
+                         "worst_tensor": errs["G"]["worst_tensor"],
+                         "worst_relative": errs["G"]["worst_relative"],
+                         "D": max(g["relative"] for n, g in errs.items() if n != "G"),
+                         "inside": all(g["inside"] for g in errs.values()),
+                         "spread": spread})
+            log("trainers", f"{tag} repeat {run}: kernels vs plain G "
+                f"{rows[-1]['G']:.4g} (limit {TRAINER_G_TOL}), worst tensor "
+                f"{rows[-1]['worst_tensor']} {rows[-1]['worst_relative']:.4g}, "
+                f"the Ds at most {rows[-1]['D']:.3g}; against each path's "
+                f"first run, G {spread}")
+            del got, want
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del first
+    bad = [i for i, r in enumerate(rows) if not r["inside"]]
+    if bad:
+        raise AssertionError(f"{tag}: repeats {bad} outside the bars: {rows}")
+    return rows
+
+
+def _trace_cli(torch, spec, data, work):
+    """11a: the train CLI on the canonical v3 at 512x512, batch 4, bf16,
+    16 steps (8 epochs of 2 batches) with --trace_dir and --verbose."""
+    from cfen_vit_tpu_torch.train.cli import main as train_main
+    from cfen_vit_tpu_torch.utils.netinfo import count_params
+    trace_dir = os.path.join(work, "trace_v3")
+    argv = ["--dataroot", data, "--name", "trace", "--checkpoints_dir",
+            os.path.join(work, "ckpt_trace"), "--model", "dec_vit",
+            "--dataset_mode", "dec_vit", "--model_G", spec.name,
+            "--n_feats", str(spec.n_feats),
+            "--hidden_dim_ratio", str(spec.hidden_dim_ratio),
+            "--patch_size", str(spec.patch_size),
+            "--loadSize", str(spec.load_size), "--sb", "--batchSize",
+            str(BATCH), "--niter", "4", "--niter_decay", "4", "--gpu_ids", "0",
+            "--print_freq", str(BATCH), "--compute_dtype", "bfloat16",
+            "--save_epoch_freq", "100", "--save_latest_freq", "100000",
+            "--display_freq", "100000", "--trace_dir", trace_dir, "--verbose"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        run = train_main(argv)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    totals = [l for l in lines if l.startswith("[Network")]
+    structure = [l for l in lines if re.match(r"^ *[\w.]+(/|: [\d,]+ params)$", l)]
+    tr = run["model"]
+    want = [f"[Network {name}] Total number of parameters : "
+            f"{count_params(net) / 1e6:.3f} M" for name, net in
+            (("G", tr.g), *((f"D_{k}", d) for k, d in tr.d.items()))]
+    log("trace", f"v3 bf16 train CLI, {len(run['step_seconds'])} steps in "
+        f"{seconds:.1f} s (step seconds "
+        f"{[round(x, 3) for x in run['step_seconds']]}); --verbose: "
+        f"{len(structure)} structure lines, " + "; ".join(totals))
+    if totals != want or not structure:
+        raise AssertionError(f"--verbose printed {totals}, expected {want}")
+    s = run["trace"]
+    files = {f: os.path.getsize(os.path.join(trace_dir, f))
+             for f in ("trace.json", "key_averages.txt", "summary.json")
+             if os.path.exists(os.path.join(trace_dir, f))}
+    _log_trace("v3 bf16 train CLI, --trace_dir", s)
+    log("trace", f"files {files}")
+    steps = [f"train step {i}" for i in range(10, 16)]
+    missing = [g for g in TRACE_KERNELS if not s["groups_ms"].get(g)]
+    if len(files) != 3 or s["steps"] != steps or missing:
+        raise AssertionError(f"--trace_dir: files {files}, steps {s['steps']} "
+                             f"(want {steps}), kernel groups missing {missing}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return {"seconds": seconds, **{k: v for k, v in s.items() if k != "top"}}
+
+
+def _data_parallel(torch, spec, data, work):
+    """11b: torchrun --standalone --nproc_per_node 1 -m
+    cfen_vit_tpu_torch.train --mesh_shape 1 (NCCL), 2 float32 steps of the
+    canonical v3, against the same 2 steps in this process without
+    torchrun; --mesh_shape 2 on one card raises."""
+    from cfen_vit_tpu_torch.train.cli import main as train_main
+
+    def argv(name, mesh):
+        return ["--dataroot", data, "--name", name, "--checkpoints_dir",
+                os.path.join(work, "ckpt_dp"), "--model", "dec_vit",
+                "--dataset_mode", "dec_vit", "--model_G", spec.name,
+                "--n_feats", str(spec.n_feats),
+                "--hidden_dim_ratio", str(spec.hidden_dim_ratio),
+                "--patch_size", str(spec.patch_size),
+                "--loadSize", str(spec.load_size), "--sb", "--batchSize",
+                str(BATCH), "--niter", "1", "--niter_decay", "1",
+                "--gpu_ids", "0", "--print_freq", str(BATCH),
+                "--max_dataset_size", str(BATCH), "--save_epoch_freq", "3",
+                "--save_latest_freq", "100000", "--mesh_shape", mesh]
+
+    def losses(name):
+        with open(os.path.join(work, "ckpt_dp", name, "loss_log.jsonl")) as fh:
+            return [json.loads(l) for l in fh]
+
+    with redirect_stdout(io.StringIO()):
+        train_main(argv("one", "1"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "cfen_vit_tpu_torch.train",
+         *argv("torchrun", "1")], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    if res.returncode:
+        raise AssertionError(f"torchrun exited {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    backend = re.search(r"data parallel: (\d+) rank.*backend (\w+)", res.stdout)
+    one, two = losses("one"), losses("torchrun")
+    errs = {k: abs(b[k] - a[k]) / max(abs(a[k]), 1e-6)
+            for a, b in zip(one, two) for k in a if k not in ("epoch", "iters")}
+    worst = max(errs, key=errs.get)
+    log("data_parallel", f"torchrun, 1 rank ({backend.group(0) if backend else 'no backend line'}): "
+        f"{len(two)} steps in {seconds:.1f} s (process start, build load, "
+        f"data); losses against one process: largest {worst} "
+        f"{errs[worst]:.3g} relative (limit {DP_LOSS_TOL})")
+    if (len(one) != 2 or len(two) != 2 or errs[worst] > DP_LOSS_TOL
+            or not backend or backend.group(2) != "nccl"):
+        raise AssertionError(f"torchrun: {len(two)} steps, {errs}, {backend}")
+    try:
+        with redirect_stdout(io.StringIO()):
+            train_main(argv("two", "2"))
+    except ValueError as e:
+        log("data_parallel", f"--mesh_shape 2 on one card raises: {e}")
+    else:
+        raise AssertionError("--mesh_shape 2 on one card trained")
+    return {"seconds": seconds, "largest_loss_difference": errs[worst]}
+
+
+def _alt_cases(torch):
+    """(name, module builder, input builder, output -> list of tensors) at
+    the sizes their users run."""
+    from cfen_vit_tpu_torch.losses import extra
+    from cfen_vit_tpu_torch.models import networks_alt as A
+    from cfen_vit_tpu_torch.models.pvt import create_pvt
+
+    def images(n, side, c=3):
+        g = torch.Generator().manual_seed(SEED)
+        return torch.rand(n, c, side, side, generator=g) * 2 - 1
+
+    def seeded(net):
+        torch.manual_seed(SEED)
+        for m in net.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters()
+        return net
+
+    class Fn(torch.nn.Module):
+        def __init__(self, fn):
+            super().__init__()
+            self.fn = fn
+
+        def forward(self, *x):
+            return self.fn(*x)
+
+    feats = images(BATCH, 64, 512)
+    return [
+        ("ResnetGenerator ngf 64, 9 blocks, 256x256, batch 4",
+         lambda: seeded(A.ResnetGenerator(3, 3, 64, 9)), (images(BATCH, 256),)),
+        ("UnetGenerator num_downs 8, 256x256, batch 4",
+         lambda: seeded(A.UnetGenerator(3, 3, 8)), (images(BATCH, 256),)),
+        ("Classifier ndf 64, 32x32, batch 64",
+         lambda: seeded(A.Classifier(3, 64)), (images(64, 32),)),
+        ("pvt_tiny 224x224, batch 8",
+         lambda: create_pvt("pvt_tiny", seed=SEED)[1], (images(8, 224),)),
+        ("mind_loss 512x512, batch 4",
+         lambda: Fn(extra.mind_loss), (images(BATCH, SIDE, 1),
+                                       images(BATCH, SIDE, 1).flip(2))),
+        ("adain [4, 512, 64, 64]",
+         lambda: Fn(extra.adain), (feats, feats.flip(1) * 2 + 1)),
+    ]
+
+
+def _alt_run(torch, net, inputs, dtype):
+    """One forward and backward (seeded random cotangents): the outputs
+    and the first input's grad (float32 copies), and the median ms of 3
+    more."""
+    net = net.to("cuda", dtype)
+    xs = [x.to("cuda", dtype).requires_grad_(True) for x in inputs]
+    cotangents = []
+
+    def step():
+        for x in xs:
+            x.grad = None
+        out = net(*xs)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        if not cotangents:
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            cotangents.extend(torch.randn(o.shape, generator=g, device="cuda")
+                              for o in outs)
+        sum((o.float() * c).sum() for o, c in zip(outs, cotangents)).backward()
+        return outs
+
+    outs = [o.detach().float() for o in step()] + [xs[0].grad.float()]
+    times = []
+    for _ in range(3):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        step()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return outs, statistics.median(times)
+
+
+def _alt_modules(torch):
+    """11d: item 9's modules, one forward and backward each in float32 and
+    bfloat16: finite, bf16's outputs within ALT_BF16_TOL of float32's and
+    its input grad at cosine ALT_GRAD_COS or above."""
+    rows = {}
+    for name, build, inputs in _alt_cases(torch):
+        got = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            got[dtype] = _alt_run(torch, build(), inputs, dtype)
+            torch.cuda.empty_cache()
+        (f32, ms32), (b16, ms16) = got[torch.float32], got[torch.bfloat16]
+        finite = all(bool(torch.isfinite(t).all()) for t in f32 + b16)
+        rel = [float((b - f).norm() / max(float(f.norm()), 1e-30))
+               for f, b in zip(f32, b16)]
+        gf, gb = f32[-1].flatten().double(), b16[-1].flatten().double()
+        if float(gf.norm()) == 0.0 == float(gb.norm()):
+            cos = 1.0      # the Classifier's 1x1 InstanceNorms pass none
+        else:
+            cos = float(gf @ gb / max(float(gf.norm() * gb.norm()), 1e-300))
+        rows[name] = {"ms": {"float32": ms32, "bfloat16": ms16},
+                      "bf16_relative": rel, "grad_cosine": cos,
+                      "finite": finite,
+                      "inside": finite and max(rel[:-1]) <= ALT_BF16_TOL
+                      and cos >= ALT_GRAD_COS}
+        log("alt", f"{name}: forward+backward {ms32:.3f} / {ms16:.3f} ms "
+            f"fp32 / bf16; bf16 against fp32, relative: outputs "
+            + ", ".join(f"{r:.3g}" for r in rel[:-1])
+            + f" (limit {ALT_BF16_TOL}), the input grad {rel[-1]:.3g}, its "
+            f"cosine {cos:.5f} (limit {ALT_GRAD_COS})")
+    bad = {n: r for n, r in rows.items() if not r["inside"]}
+    if bad:
+        raise AssertionError(f"item 9's modules outside their bars: {bad}")
+    return rows
+
+
+def phase_port_rest(torch, spec):
+    """Phase 11: 11a the train CLI's --trace_dir and --verbose, 11b data
+    parallel through torchrun, 11d item 9's modules (11e, the decr_vit
+    repeat, and the traced decr_vit and dec_mgvit steps run in phase 10,
+    on its trainers)."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=REPO)
+    rows = {}
+    try:
+        data = os.path.join(work, "data")
+        write_hazy_pngs(data, train=True)
+        rows["trace_cli"] = _trace_cli(torch, spec, data, work)
+        torch.cuda.empty_cache()
+        rows["data_parallel"] = _data_parallel(torch, spec, data, work)
+        torch.cuda.empty_cache()
+        rows["alt"] = _alt_modules(torch)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"port_rest": rows}, default=float), flush=True)
+    log("port_rest", f"phase 11 in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2164,9 +2674,9 @@ def main() -> int:
     default_infer, default_train = phase_defaults(torch, spec)
     variant_cli = phase_variants(torch)
     trainer_launches = phase_trainers(torch)
+    phase_port_rest(torch, spec)
     ported = [m for m in sys.modules
-              if m == "jax" or m.startswith("jax.") or m == "cfen_vit_tpu"
-              or m.startswith("cfen_vit_tpu.")]
+              if m.split(".")[0] in ("jax", "flax", "msgpack", "cfen_vit_tpu")]
     if ported:
         raise AssertionError(f"the port imported {sorted(ported)[:5]}")
 

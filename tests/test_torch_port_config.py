@@ -1,7 +1,7 @@
 """The port's own configuration, data loader and image utilities against the
 JAX package's, and the rules that keep the port apart from it: no module of
-cfen_vit_tpu_torch imports jax or anything of cfen_vit_tpu, and its entry
-points ask for cuda:0 unless told `--gpu_ids -1`."""
+cfen_vit_tpu_torch imports jax, flax, msgpack or anything of cfen_vit_tpu,
+and its entry points ask for cuda:0 unless told `--gpu_ids -1`."""
 
 import dataclasses
 import os
@@ -26,8 +26,8 @@ TINY = ["--n_feats", "8", "--loadSize", "64", "--patch_size", "8",
 
 def test_no_port_module_imports_jax_or_the_jax_package():
     """Every module of the port, imported in a fresh interpreter with
-    PYTHONPATH cleared (so nothing preimports jax), leaves neither jax nor
-    any cfen_vit_tpu module in sys.modules."""
+    PYTHONPATH cleared (so nothing preimports jax), leaves neither jax,
+    flax, msgpack nor any cfen_vit_tpu module in sys.modules."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         import cfen_vit_tpu_torch as pkg
@@ -35,8 +35,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                  if not m.name.endswith("__main__")]
         for name in names:
             importlib.import_module(name)
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                     or m == "cfen_vit_tpu" or m.startswith("cfen_vit_tpu."))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "flax", "msgpack", "cfen_vit_tpu"))
         print(len(names), bad)
         assert not bad, bad
         """)

@@ -197,7 +197,14 @@ def test_train_cli_then_test_cli_on_the_cpu(tmp_path):
 
 
 def test_trace_dir_raises(tmp_path):
-    from cfen_vit_tpu_torch.train.cli import main
-    with pytest.raises(NotImplementedError, match="trace_dir"):
-        main(["--name", "x", "--checkpoints_dir", str(tmp_path), "--trace_dir",
-              str(tmp_path), "--gpu_ids", "-1", *TINY_FLAGS])
+    """--trace_dir is ported (tests/test_torch_port_profiling.py holds its
+    steps 10-15); what raises now is a second trace while one runs, since
+    torch.profiler runs one at a time."""
+    from cfen_vit_tpu_torch.utils.profiling import start_trace, stop_trace, tracing
+    start_trace(str(tmp_path / "a"))
+    try:
+        with pytest.raises(RuntimeError, match="already running"):
+            start_trace(str(tmp_path / "b"))
+    finally:
+        stop_trace()
+    assert not tracing() and (tmp_path / "a" / "trace.json").exists()

@@ -163,3 +163,27 @@ def check_second_pass(ref):
         assert_outputs(out, ref.out1)
         if "d" in ref.tspec.branches and ref.tspec.branches != "d":
             assert_outputs(g(nchw(ref.x1), branches="d"), ref.out1, "d")
+
+
+def filled_tree(name, seed=5):
+    """generator_init's tree of `name` at the tiny geometry (its shapes,
+    traced without running it) filled from a seed at a fan-in scale, every
+    ActNorm marked initialised with its scale and bias drawn near 1 and
+    0, so that a forward runs without the init pass and a mixed-up
+    tensor shows."""
+    spec = replace(JR.generator_spec(name), **TINY)
+    shapes = jax.eval_shape(lambda k: JG.generator_init(k, spec),
+                            jax.random.PRNGKey(seed))
+    rng = np.random.RandomState(seed)
+
+    def fill(path, a):
+        key = path[-1].key
+        if key == "initialized":
+            return np.ones(a.shape, a.dtype)
+        if path[-2].key == "an":
+            return ((key == "w") + 0.1 * rng.randn(*a.shape)).astype(a.dtype)
+        scale = (1.0 / np.sqrt(np.prod(a.shape[:-1])) if len(a.shape) > 1
+                 else 0.05)
+        return (scale * rng.randn(*a.shape)).astype(a.dtype)
+    tree = jax.tree_util.tree_map_with_path(fill, shapes)
+    return spec, replace(TR.generator_spec(name), **TINY), np_tree(tree)
