@@ -18,6 +18,11 @@ input of exactly that size through whole.
 `--model` picks the generator as the JAX package's does
 (`_MODEL_DEFAULT_G`): dec_vit and test run --model_G, the other five their
 own spec.
+
+Spans (utils/profiling.py): `infer.set_input`, and `infer.test` around
+`infer.forward` (the forward's launch) and each `sync.to_host` (an
+output's device-to-host read, counted in `syncs`), with the batch count
+as their unit.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .generator import Generator
 from .inference_utils import chop_forward, self_ensemble_x8
 from .registry import generator_spec
 from ..train.checkpoint import latest_epoch, load_net
+from ..utils.profiling import annotate, count
 
 # --model -> its generator; None: --model_G (JAX dehazing_model.py:31-39)
 _MODEL_DEFAULT_G = {
@@ -70,6 +76,7 @@ class DehazingModel:
                            or getattr(cfg, "self_ensemble", False))
         self.real_B = None
         self.image_paths = []
+        self.batches = 0         # taken by set_input: the unit id of spans
 
     def setup(self, cfg=None) -> None:
         cfg = cfg or self.cfg
@@ -81,7 +88,12 @@ class DehazingModel:
         self.net.eval().requires_grad_(False)
 
     def set_input(self, batch: Dict) -> None:
-        b = batch["B"]
+        self.batches += 1
+        with annotate("infer.set_input", self.batches):
+            self._set_input(batch["B"])
+        self.image_paths = batch["B_paths"]
+
+    def _set_input(self, b: np.ndarray) -> None:
         if self._u8_io:
             # rint recovers the pixels exactly from the loader's v/255*2-1
             u8 = b if b.dtype == np.uint8 else np.rint(
@@ -90,7 +102,6 @@ class DehazingModel:
         else:
             self.real_B = torch.from_numpy(np.ascontiguousarray(b)).to(
                 self.device, self.dtype)
-        self.image_paths = batch["B_paths"]
 
     def forward_u8(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """uint8 NHWC on the device -> {branch: uint8 NHWC on the device}."""
@@ -103,29 +114,14 @@ class DehazingModel:
         out = self.net(x.permute(0, 3, 1, 2).contiguous(), branches=self.branches)
         return {b: v.permute(0, 2, 3, 1) for b, v in out.items()}
 
-    @torch.inference_mode()
     def test(self, cfg=None) -> Dict[str, np.ndarray]:
-        cfg = cfg or self.cfg
-        if self._u8_io:
-            out = self.forward_u8(self.real_B)
-        else:
-            fwd = self._forward_float
-            if getattr(cfg, "self_ensemble", False):
-                base = fwd
+        with annotate("infer.test", self.batches):
+            return self._test(cfg or self.cfg)
 
-                def fwd(x, _base=base):
-                    return {b: self_ensemble_x8(lambda v, _b=b: _base(v)[_b], x)
-                            for b in self.outputs}
-            if getattr(cfg, "chop", False):
-                tile, base = cfg.input_size(), fwd
-
-                def fwd(x, _base=base):
-                    if x.shape[1] == tile and x.shape[2] == tile:
-                        return _base(x)
-                    return {b: chop_forward(lambda v, _b=b: _base(v)[_b], x,
-                                            tile, cfg.chop_overlap)
-                            for b in self.outputs}
-            out = fwd(self.real_B)
+    @torch.inference_mode()
+    def _test(self, cfg) -> Dict[str, np.ndarray]:
+        with annotate("infer.forward"):
+            out = self._forward(cfg)
         visuals = {} if self.d_only else {"real_B": _host(self.real_B)}
         for b, v in out.items():
             # dec_ipt: the refined output is the dehazed image
@@ -134,6 +130,27 @@ class DehazingModel:
                     else _VISUAL[b])
             visuals[name] = _host(v)
         return visuals
+
+    def _forward(self, cfg) -> Dict[str, torch.Tensor]:
+        if self._u8_io:
+            return self.forward_u8(self.real_B)
+        fwd = self._forward_float
+        if getattr(cfg, "self_ensemble", False):
+            base = fwd
+
+            def fwd(x, _base=base):
+                return {b: self_ensemble_x8(lambda v, _b=b: _base(v)[_b], x)
+                        for b in self.outputs}
+        if getattr(cfg, "chop", False):
+            tile, base = cfg.input_size(), fwd
+
+            def fwd(x, _base=base):
+                if x.shape[1] == tile and x.shape[2] == tile:
+                    return _base(x)
+                return {b: chop_forward(lambda v, _b=b: _base(v)[_b], x,
+                                        tile, cfg.chop_overlap)
+                        for b in self.outputs}
+        return fwd(self.real_B)
 
     def get_image_paths(self):
         return self.image_paths
@@ -155,7 +172,9 @@ def create_model(cfg, device: Optional[torch.device] = None):
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """uint8 stays uint8; the float path comes back as float32."""
-    return (t if t.dtype == torch.uint8 else t.float()).cpu().numpy()
+    with annotate("sync.to_host"):
+        count("syncs")
+        return (t if t.dtype == torch.uint8 else t.float()).cpu().numpy()
 
 
 def _exists(cfg, epoch) -> bool:

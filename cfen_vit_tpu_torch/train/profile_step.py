@@ -10,10 +10,10 @@ uint8-representable images made on the host.  Per dtype it prints: the
 step time (CUDA-synchronised host clock, mean of --steps steps after two
 warm-up steps), the peak device memory of a step, and a torch.profiler
 split of one step's device time by kernel group (utils/profiling.py
-`GROUPS`), with the device's busy
-share (summed kernel time over the step's wall time).  The groups and the
-top kernels are also written to DIR/profile_step_<dtype>.json.  Needs one
-card; without one it raises.
+`GROUPS`), with the device's busy share (the union of its records'
+intervals over the step's wall time: overlapping kernels count once).
+The groups and the top kernels are also written to
+DIR/profile_step_<dtype>.json.  Needs one card; without one it raises.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from ..utils.profiling import kernel_split
+from ..utils.profiling import busy_ns, device_intervals, kernel_split
 
 def _trainer(dtype: str, batch: int):
     from ..config import Config
@@ -70,16 +70,17 @@ def profile(dtype: str, batch: int, steps: int, out_dir: str) -> dict:
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        t1 = time.time_ns()
     split = kernel_split(prof.key_averages())
-    busy = split["kernel_ms"]
     res = {"dtype": dtype, "batch": batch, "step_s": times,
            "mean_step_s": float(np.mean(times)), "peak_gib": peak,
-           "profiled_step_wall_ms": wall * 1e3, "kernel_ms": busy,
-           "busy_share": busy / (wall * 1e3), "kernels": split["launches"],
+           "profiled_step_wall_ms": (t1 - t0) / 1e6,
+           "kernel_ms": split["kernel_ms"],
+           "busy_share": busy_ns(device_intervals(prof), t0, t1) / (t1 - t0),
+           "kernels": split["launches"],
            "groups_ms": split["groups_ms"], "top": split["top"],
            "losses": tr.get_current_losses()}
     os.makedirs(out_dir, exist_ok=True)

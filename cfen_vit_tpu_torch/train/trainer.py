@@ -61,6 +61,11 @@ ActNorm init pass and the pools take the global batch; only rank 0 saves.
 Batches travel as uint8 when that is lossless and are normalised on the
 device.  Pools are device ring buffers in the compute dtype, updated in
 place, sampled by a torch.Generator.
+
+Spans (utils/profiling.py, which lists them): `train.set_input` and
+`train.step` with a span for each phase of the step, `sync.*` around
+each read of a device value (counted in `syncs`), the batch count as
+their unit.
 """
 
 from __future__ import annotations
@@ -83,6 +88,7 @@ from ..models.registry import generator_spec
 from ..ops.gradient import color_gradient
 from ..ops.ssim import ssim
 from ..parallel import mesh as M
+from ..utils.profiling import annotate, count
 from .checkpoint import load_train_state, save_net, save_train_state
 from .schedule import lr_for_epoch
 
@@ -109,7 +115,10 @@ def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
     for k, v in batch.items():
         if not isinstance(v, np.ndarray):
             continue
-        t = torch.from_numpy(_u8_wire(v)).to(device)
+        with annotate("train.set_input.wire"):
+            v = _u8_wire(v)
+        with annotate("train.set_input.copy"):
+            t = torch.from_numpy(v).to(device)
         t = t.permute(0, 3, 1, 2).contiguous()
         out[k] = (t.float() / 127.5 - 1.0 if t.dtype == torch.uint8
                   else t if t.is_floating_point() else t.float())
@@ -203,6 +212,7 @@ class GanTrainer:
         self.epoch = cfg.epoch_count
         self.lr = lr_for_epoch(cfg, 0)
         self._batch: Dict[str, torch.Tensor] = {}
+        self.batches = 0         # taken by set_input: the unit id of spans
         self._losses: Dict[str, torch.Tensor] = {}
         self._fakes: Dict[str, torch.Tensor] = {}
         self.image_paths = []
@@ -243,7 +253,7 @@ class GanTrainer:
             return self.g
         if self._g_c is None:
             self._g_c = copy.deepcopy(self.g).to(self.dtype)
-        with torch.no_grad():
+        with annotate("train.g_refresh"), torch.no_grad():
             for pc, pm in zip(self._g_c.parameters(), self.g.parameters()):
                 pc.copy_(pm)
         return self._g_c
@@ -251,7 +261,8 @@ class GanTrainer:
     def _g_loss(self, g, batch):
         cfg = self.cfg
         batch = {k: v.to(self.dtype) for k, v in batch.items()}
-        out = g(batch["B"], remat=self.remat)
+        with annotate("train.g_forward"):
+            out = g(batch["B"], remat=self.remat)
         fakes = {name: out[b] for b, name in self.branches.items()}
         reals = {name: batch[name] for name in fakes}
         if "S" in fakes:
@@ -261,10 +272,13 @@ class GanTrainer:
         losses = {}
         for name, fake in fakes.items():
             real, lk = reals[name], name.lower()
-            pred = functional_call(self.d[name], self._cast(self.d[name]),
-                                   (torch.cat([hazy, fake], dim=1),))
-            gan = gan_loss(pred, True, self.use_lsgan) * 0.0618
-            vgg = vgg_perceptual_loss(self.vgg, fake, real) * cfg.lambda_vgg * 2
+            with annotate("train.d_on_fake"):
+                pred = functional_call(self.d[name], self._cast(self.d[name]),
+                                       (torch.cat([hazy, fake], dim=1),))
+                gan = gan_loss(pred, True, self.use_lsgan) * 0.0618
+            with annotate("train.vgg"):
+                vgg = (vgg_perceptual_loss(self.vgg, fake, real)
+                       * cfg.lambda_vgg * 2)
             grad = torch.mean(torch.square(color_gradient(real)
                                            - color_gradient(fake)))
             l1 = torch.mean(torch.abs(real - fake))
@@ -278,14 +292,16 @@ class GanTrainer:
                 1 if self.loss_set == "decmgvit" else 2)
             losses[f"L2_{lk}"] = l1 * 2
             if self.loss_set == "dec":
-                losses[f"ssim_{lk}"] = (1.0 - ssim(real, fake)) * 3
+                with annotate("train.ssim"):
+                    losses[f"ssim_{lk}"] = (1.0 - ssim(real, fake)) * 3
         if self.loss_set == "dec":
             # a sum over the batch: the ranks' mean of W x their sums is
             # the global batch's sum
-            losses["p"] = idmrf_loss(self.vgg, reals["A"], fakes["A"]) * (
-                0.06 * self.mesh.size)
-            losses["s"] = semantic_consistency_loss(self.vgg, reals["A"],
-                                                    fakes["A"]) * 2
+            with annotate("train.vgg"):
+                losses["p"] = idmrf_loss(self.vgg, reals["A"], fakes["A"]) * (
+                    0.06 * self.mesh.size)
+                losses["s"] = semantic_consistency_loss(
+                    self.vgg, reals["A"], fakes["A"]) * 2
         # JAX casts the terms to float32 before their sum, but MGVIT's, which
         # it sums in the compute dtype
         if self.loss_set != "mgvit":
@@ -307,7 +323,9 @@ class GanTrainer:
 
     # -- the step -----------------------------------------------------------
     def set_input(self, batch: Dict) -> None:
-        self._batch = device_batch(batch, self.device)
+        self.batches += 1
+        with annotate("train.set_input", self.batches):
+            self._batch = device_batch(batch, self.device)
         self.image_paths = batch.get("B_paths", [])
 
     @torch.no_grad()
@@ -326,21 +344,28 @@ class GanTrainer:
         grads of G and D accumulate on their .grad; a compute copy's G
         grads are moved into the float32 list `g_grads`).  Returns the
         detached losses and fakes; the graph is gone when it returns."""
-        losses, fakes, reals = self._g_loss(g_c, batch)
-        losses["G"].backward(inputs=list(g_c.parameters()))
-        if g_c is not self.g:
-            for i, pc in enumerate(g_c.parameters()):
-                if pc.grad is not None:
-                    g_grads[i] = (pc.grad.float() if g_grads[i] is None
-                                  else g_grads[i].add_(pc.grad))
-                    pc.grad = None
-        d_losses = self._d_loss(batch["B"], fakes, reals)
-        sum(d_losses.values()).backward(inputs=list(self.d.parameters()))
+        with annotate("train.g_loss"):
+            losses, fakes, reals = self._g_loss(g_c, batch)
+        with annotate("train.g_backward"):
+            losses["G"].backward(inputs=list(g_c.parameters()))
+            if g_c is not self.g:
+                for i, pc in enumerate(g_c.parameters()):
+                    if pc.grad is not None:
+                        g_grads[i] = (pc.grad.float() if g_grads[i] is None
+                                      else g_grads[i].add_(pc.grad))
+                        pc.grad = None
+        with annotate("train.d_step"):
+            d_losses = self._d_loss(batch["B"], fakes, reals)
+            sum(d_losses.values()).backward(inputs=list(self.d.parameters()))
         losses.update(d_losses)
         return ({k: v.detach() for k, v in losses.items()},
                 {k: v.detach() for k, v in fakes.items()})
 
     def optimize_parameters(self, cfg=None) -> None:
+        with annotate("train.step", self.batches):
+            self._optimize()
+
+    def _optimize(self) -> None:
         batch = self._batch
         if not self.pools:
             self._init_state(batch["B"])
@@ -363,37 +388,47 @@ class GanTrainer:
             elif self.accum > 1:
                 p.grad /= self.accum
         if self.mesh.launched:
-            M.allreduce_mean_([p.grad for p in params] + list(losses.values()))
-        gl = float(losses["G"])
+            with annotate("train.allreduce"):
+                M.allreduce_mean_([p.grad for p in params]
+                                  + list(losses.values()))
+        with annotate("sync.skip_gate"):
+            gl = float(losses["G"])
+            count("syncs")
         if math.isfinite(gl) and gl < float(self.cfg.skip_threshold):
-            with torch.no_grad():
+            with annotate("train.pool"), torch.no_grad():
                 for _, fakes in steps:
                     for name, fake in fakes.items():
                         pool_query(self.pools[name], M.gather(fake)
                                    if self.mesh.launched else fake,
                                    self.pool_gen)
-            for opt in (self.g_opt, self.d_opt):
-                for group in opt.param_groups:
-                    group["lr"] = self.lr
-                opt.step()
+            with annotate("train.adam"):
+                for opt in (self.g_opt, self.d_opt):
+                    for group in opt.param_groups:
+                        group["lr"] = self.lr
+                    opt.step()
             self.step += 1
-        for module in (g_c, self.g, self.d):
-            module.zero_grad(set_to_none=True)
+        with annotate("train.zero_grad"):
+            for module in (g_c, self.g, self.d):
+                module.zero_grad(set_to_none=True)
         self._losses = losses
         self._fakes = steps[-1][1]
 
     # -- the reference wrapper's interface --------------------------------
     def get_current_losses(self) -> Dict[str, float]:
-        return {k: float(v) for k, v in self._losses.items()}
+        with annotate("sync.losses", self.batches):
+            count("syncs", len(self._losses))
+            return {k: float(v) for k, v in self._losses.items()}
 
     def get_current_visuals(self) -> Dict[str, np.ndarray]:
         def nhwc(t):
+            count("syncs")
             return t.float().permute(0, 2, 3, 1).cpu().numpy()
-        vis = {"real_B": nhwc(self._batch["B"])}
-        for name, fake in self._fakes.items():
-            vis[_VISUAL[name]] = nhwc(fake)
-            if name in self._batch:
-                vis[f"real_{name}"] = nhwc(self._batch[name])
+        with annotate("sync.visuals", self.batches):
+            vis = {"real_B": nhwc(self._batch["B"])}
+            for name, fake in self._fakes.items():
+                vis[_VISUAL[name]] = nhwc(fake)
+                if name in self._batch:
+                    vis[f"real_{name}"] = nhwc(self._batch[name])
         return vis
 
     def get_image_paths(self):
