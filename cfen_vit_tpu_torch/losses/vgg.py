@@ -16,6 +16,7 @@ perceptual loss, not ImageNet's.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Dict, Optional, Tuple
@@ -75,12 +76,20 @@ def vgg19_init(npz_path: Optional[str] = None,
     return vgg.requires_grad_(False)
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_mean(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[1, 3, 1, 1], made once per device and dtype: a copy from the host
+    waits for the device's queue, and a captured CUDA graph cannot hold
+    one."""
+    return torch.tensor(_IMAGENET_MEAN, dtype=dtype,
+                        device=device).view(1, 3, 1, 1)
+
+
 def vgg19_features(vgg: nn.Module, x: torch.Tensor, taps: Tuple[str, ...],
                    subtract_mean: bool = False) -> Dict[str, torch.Tensor]:
     """x: NCHW.  Runs only as deep as the deepest requested tap."""
     if subtract_mean:
-        x = x - torch.tensor(_IMAGENET_MEAN, dtype=x.dtype,
-                             device=x.device).view(1, 3, 1, 1)
+        x = x - _imagenet_mean(x.dtype, x.device)
     want, feats = set(taps), {}
     for bi, (_, n) in enumerate(_VGG19_BLOCKS, start=1):
         if bi > 1:

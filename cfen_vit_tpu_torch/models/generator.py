@@ -556,8 +556,13 @@ class Generator(nn.Module):
             s2 = l2.get("s") if b == "d" and spec.d02_us_from_s else None
             full = not d_only or b == "d"
             if remat == "branch":
+                # a copy of `us`: the region keeps its arguments until the
+                # backward has read all it saved, and `us` takes the region's
+                # own outputs below, so where the backward never reaches part
+                # of it (D's level-2 output under d02_us_from_s) its graph
+                # held itself and outlived the step
                 out_b, us_b, l2[b] = ckpt(self._decode_branch, b, cur, encs,
-                                          us, s2, full, self._level)
+                                          dict(us), s2, full, self._level)
             else:
                 out_b, us_b, l2[b] = self._decode_branch(
                     b, cur, encs, us, s2, full, level)

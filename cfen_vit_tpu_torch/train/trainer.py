@@ -62,10 +62,27 @@ Batches travel as uint8 when that is lossless and are normalised on the
 device.  Pools are device ring buffers in the compute dtype, updated in
 place, sampled by a torch.Generator.
 
+On a card the step replays one CUDA graph where it can: with one
+micro-batch, one process, after the first step (ActNorms initialised,
+pools made), for a batch that came through `set_input`.  The first such
+step captures the region from the wire's normalisation through the
+compute copy's refresh, the G loss and backward (grads cast onto the
+masters), the D loss and backward, the zero grads and the stacked
+losses, for its batch signature (keys, shapes and dtypes on the wire);
+later batches of that signature are copied into the graph's static
+arrays and replay it.  The skip gate, the pools, Adam and the learning
+rate stay eager, after the replay.  A batch of another signature, the
+CPU, --grad_accum > 1 and --mesh_shape run the eager step.  The replay
+writes the static grads the eager Adam reads: they are set as .grad
+after each replay and never accumulated into; the losses, fakes and
+batch the wrapper returns are the graph's static tensors, which hold
+the step's values until the next step.
+
 Spans (utils/profiling.py, which lists them): `train.set_input` and
-`train.step` with a span for each phase of the step, `sync.*` around
-each read of a device value (counted in `syncs`), the batch count as
-their unit.
+`train.step` with a span for each phase of the step (a replayed step:
+`train.graph_replay` in place of the phases it captured), `sync.*`
+around each read of a device value (counted in `syncs`), the batch
+count as their unit; the counters `graph_captures`, `graph_replays`.
 """
 
 from __future__ import annotations
@@ -107,22 +124,48 @@ def _u8_wire(v: np.ndarray) -> np.ndarray:
     return v
 
 
+def host_wire(batch: Dict) -> Dict[str, np.ndarray]:
+    """The NHWC numpy arrays of a loader batch as they cross to the device:
+    uint8 where that is lossless (`_u8_wire`), else as they are."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            with annotate("train.set_input.wire"):
+                out[k] = _u8_wire(v)
+    return out
+
+
+def signature(wire: Dict[str, np.ndarray]) -> tuple:
+    """A batch's keys, shapes and dtypes on the wire."""
+    return tuple(sorted((k, v.shape, v.dtype.str) for k, v in wire.items()))
+
+
+def copy_in(wire: Dict[str, np.ndarray], device, into=None
+            ) -> Dict[str, torch.Tensor]:
+    """The wire's arrays on the device, each a pageable copy: new tensors,
+    or the tensors of `into` (same keys, shapes and dtypes) overwritten."""
+    out = {}
+    for k, v in wire.items():
+        with annotate("train.set_input.copy"):
+            src = torch.from_numpy(v)
+            out[k] = src.to(device) if into is None else into[k].copy_(src)
+    return out
+
+
+def normalise(t: torch.Tensor) -> torch.Tensor:
+    """A device array of the wire, NHWC -> NCHW in [-1, 1]: uint8 to
+    float32; other arrays keep their float dtype."""
+    t = t.permute(0, 3, 1, 2).contiguous()
+    return (t.float() / 127.5 - 1.0 if t.dtype == torch.uint8
+            else t if t.is_floating_point() else t.float())
+
+
 def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """NHWC numpy arrays of a loader batch -> device NCHW in [-1, 1],
     over the uint8 wire when that is lossless (float32 then); other
     arrays keep their float dtype."""
-    out = {}
-    for k, v in batch.items():
-        if not isinstance(v, np.ndarray):
-            continue
-        with annotate("train.set_input.wire"):
-            v = _u8_wire(v)
-        with annotate("train.set_input.copy"):
-            t = torch.from_numpy(v).to(device)
-        t = t.permute(0, 3, 1, 2).contiguous()
-        out[k] = (t.float() / 127.5 - 1.0 if t.dtype == torch.uint8
-                  else t if t.is_floating_point() else t.float())
-    return out
+    return {k: normalise(v)
+            for k, v in copy_in(host_wire(batch), device).items()}
 
 
 # --------------------------------------------------------------------------
@@ -168,6 +211,23 @@ def pool_query(pool: Dict, images: torch.Tensor, gen: torch.Generator):
 # trainer
 # --------------------------------------------------------------------------
 
+class _StepGraph:
+    """A step captured by GanTrainer._capture for one batch signature: the
+    static device arrays set_input copies the wire into, the CUDA graph,
+    and the static tensors each replay writes (the normalised batch, the
+    losses, each micro-batch's fakes, every parameter's grad in the
+    optimizers' order)."""
+
+    def __init__(self, signature: tuple, inputs: Dict[str, torch.Tensor]):
+        self.signature = signature
+        self.inputs = inputs
+        self.graph = torch.cuda.CUDAGraph()
+        self.batch: Dict[str, torch.Tensor] = {}
+        self.losses: Dict[str, torch.Tensor] = {}
+        self.fakes: list = []
+        self.grads: list = []
+
+
 class GanTrainer:
     """The reference wrapper's interface: set_input / optimize_parameters /
     get_current_losses / get_current_visuals / save_networks /
@@ -212,6 +272,10 @@ class GanTrainer:
         self.epoch = cfg.epoch_count
         self.lr = lr_for_epoch(cfg, 0)
         self._batch: Dict[str, torch.Tensor] = {}
+        # set_input's (signature, device wire arrays, batch), which a capture
+        # reads; `_batch` set by other code runs the eager step
+        self._input: tuple = ((), {}, None)
+        self._graph = None       # the captured step (_StepGraph)
         self.batches = 0         # taken by set_input: the unit id of spans
         self._losses: Dict[str, torch.Tensor] = {}
         self._fakes: Dict[str, torch.Tensor] = {}
@@ -323,9 +387,20 @@ class GanTrainer:
 
     # -- the step -----------------------------------------------------------
     def set_input(self, batch: Dict) -> None:
+        """The batch on the device: into the captured step's static arrays
+        when the step will replay it (normalised by the replay, which
+        fills `_batch`), else normalised now."""
         self.batches += 1
         with annotate("train.set_input", self.batches):
-            self._batch = device_batch(batch, self.device)
+            wire = host_wire(batch)
+            sig = signature(wire)
+            graph = (self._graph if self._graph is not None
+                     and self._graph_engages(sig) else None)
+            dev = copy_in(wire, self.device,
+                          graph.inputs if graph is not None else None)
+            self._batch = (graph.batch if graph is not None
+                           else {k: normalise(v) for k, v in dev.items()})
+            self._input = (sig, dev, self._batch)
         self.image_paths = batch.get("B_paths", [])
 
     @torch.no_grad()
@@ -361,15 +436,14 @@ class GanTrainer:
         return ({k: v.detach() for k, v in losses.items()},
                 {k: v.detach() for k, v in fakes.items()})
 
-    def optimize_parameters(self, cfg=None) -> None:
-        with annotate("train.step", self.batches):
-            self._optimize()
+    def _params(self) -> list:
+        return [p for opt in (self.g_opt, self.d_opt)
+                for group in opt.param_groups for p in group["params"]]
 
-    def _optimize(self) -> None:
-        batch = self._batch
-        if not self.pools:
-            self._init_state(batch["B"])
-        g_c = self._g_compute()
+    def _grads(self, g_c, batch):
+        """Every micro-batch's G and D losses and backward.  Leaves the
+        mean grads on the masters' and the Ds' .grad, zeros where none
+        reached; returns the mean losses and each micro-batch's fakes."""
         g_grads = [None] * len(self.g_opt.param_groups[0]["params"])
         mb = batch["B"].shape[0] // self.accum
         steps = [self._micro_step(g_c, {k: v[i * mb:(i + 1) * mb]
@@ -380,13 +454,68 @@ class GanTrainer:
         if g_c is not self.g:
             for pm, acc in zip(self.g.parameters(), g_grads):
                 pm.grad = acc
-        params = [p for opt in (self.g_opt, self.d_opt)
-                  for group in opt.param_groups for p in group["params"]]
-        for p in params:                # every parameter moves, as in JAX
+        for p in self._params():        # every parameter moves, as in JAX
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             elif self.accum > 1:
                 p.grad /= self.accum
+        return losses, [fakes for _, fakes in steps]
+
+    def _region(self, wire):
+        """What the captured step replays: the wire's normalisation, the
+        compute copy's refresh, `_grads`.  Returns (batch, losses, fakes)."""
+        batch = {k: normalise(v) for k, v in wire.items()}
+        return (batch, *self._grads(self._g_compute(), batch))
+
+    def _graph_engages(self, sig: tuple) -> bool:
+        """Whether the step on a batch of signature `sig` replays the
+        captured step (capturing it first if there is none): on a card,
+        one micro-batch, one process, after the first step (ActNorms
+        initialised, pools made), and `sig` the captured signature."""
+        return (self.device.type == "cuda" and self.accum == 1
+                and not self.mesh.launched and bool(self.pools)
+                and self.g.actnorms_ready()
+                and (self._graph is None or self._graph.signature == sig))
+
+    def _capture(self, sig: tuple, wire) -> _StepGraph:
+        """`_region` as a CUDA graph on static copies of the wire.  The
+        eager first step has set up what is made lazily (kernels built,
+        cuDNN's plans, ActNorm flags read, the ImageNet mean), so the
+        capture needs no warm-up run of its own.  The grads are None at the
+        capture, so its backward writes them rather than adding to them."""
+        count("graph_captures")
+        graph = _StepGraph(sig, {k: v.clone() for k, v in wire.items()})
+        params = self._params()
+        with torch.cuda.graph(graph.graph):
+            graph.batch, graph.losses, graph.fakes = self._region(graph.inputs)
+        graph.grads = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        return graph
+
+    def optimize_parameters(self, cfg=None) -> None:
+        with annotate("train.step", self.batches):
+            self._optimize()
+
+    def _optimize(self) -> None:
+        sig, wire, loaded = self._input
+        if (self._graph is None and loaded is self._batch
+                and self._graph_engages(sig)):
+            self._graph = self._capture(sig, wire)
+            self._batch = self._graph.batch
+        graph = self._graph
+        params = self._params()
+        if graph is not None and self._batch is graph.batch:
+            with annotate("train.graph_replay"):
+                graph.graph.replay()
+                count("graph_replays")
+            for p, grad in zip(params, graph.grads):
+                p.grad = grad
+            losses, fakes = graph.losses, graph.fakes
+        else:
+            if not self.pools:
+                self._init_state(self._batch["B"])
+            losses, fakes = self._grads(self._g_compute(), self._batch)
         if self.mesh.launched:
             with annotate("train.allreduce"):
                 M.allreduce_mean_([p.grad for p in params]
@@ -396,8 +525,8 @@ class GanTrainer:
             count("syncs")
         if math.isfinite(gl) and gl < float(self.cfg.skip_threshold):
             with annotate("train.pool"), torch.no_grad():
-                for _, fakes in steps:
-                    for name, fake in fakes.items():
+                for micro in fakes:
+                    for name, fake in micro.items():
                         pool_query(self.pools[name], M.gather(fake)
                                    if self.mesh.launched else fake,
                                    self.pool_gen)
@@ -408,10 +537,10 @@ class GanTrainer:
                     opt.step()
             self.step += 1
         with annotate("train.zero_grad"):
-            for module in (g_c, self.g, self.d):
+            for module in (self.g, self.d):
                 module.zero_grad(set_to_none=True)
         self._losses = losses
-        self._fakes = steps[-1][1]
+        self._fakes = fakes[-1]
 
     # -- the reference wrapper's interface --------------------------------
     def get_current_losses(self) -> Dict[str, float]:

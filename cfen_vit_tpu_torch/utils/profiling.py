@@ -58,6 +58,8 @@ the benchmark metric that reads each):
       train.g_backward          G's backward
       train.d_step              the D loss and its backward
       train.allreduce           the mean over ranks (--mesh_shape only)
+      train.graph_replay        a replay of the captured step, in place
+                                of the spans from g_refresh to d_step
       sync.skip_gate            the skip gate's read of the G loss
       train.pool                the image pools
       train.adam                Adam on G and the Ds
@@ -73,6 +75,8 @@ the benchmark metric that reads each):
     gc                          a garbage collection
   counter syncs                 the program's own device-to-host reads,
                                 each counted inside its sync.* span
+  counter graph_captures        the trainer's captures of its step
+  counter graph_replays         the trainer's replays of its step
 """
 
 from __future__ import annotations
