@@ -159,11 +159,17 @@ class DehazingModel:
 def create_model(cfg, device: Optional[torch.device] = None):
     """The trainer when cfg.isTrain, else the inference wrapper, for the
     seven `--model` values (JAX dehazing_model.py create_model); on
-    `--gpu_ids`' device unless one is given."""
-    if cfg.model not in _MODEL_DEFAULT_G:
+    `--gpu_ids`' device unless one is given.  The port also trains
+    `--model epdn` (train/pix2pixhd.py EpdnTrainer), which the JAX
+    package's create_model does not know."""
+    training_epdn = cfg.model == "epdn" and cfg.isTrain
+    if cfg.model not in _MODEL_DEFAULT_G and not training_epdn:
         raise NotImplementedError(f"model [{cfg.model}] not implemented.")
     from ..config import select_device
     device = device if device is not None else select_device(cfg.gpu_ids)
+    if training_epdn:
+        from ..train.pix2pixhd import EpdnTrainer
+        return EpdnTrainer(cfg, device)
     if cfg.isTrain:
         from ..train.trainer import GanTrainer
         return GanTrainer(cfg, device)

@@ -156,12 +156,20 @@ class LocalEnhancer(nn.Module):
         self.dehaze = Dehaze(6)
         self.dehaze2 = Dehaze(6)
 
-    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    def synthesize(self, x) -> torch.Tensor:
+        """pix2pixHD's output: the global trunk on the pooled input, added
+        to the local downsample, then the local blocks and tail."""
         coarse = self.model(avg_pool_3s2(x))
-        out = self.model1_2(self.model1_1(x) + coarse)
+        return self.model1_2(self.model1_1(x) + coarse)
+
+    def enhance(self, out, x) -> torch.Tensor:
+        """EPDN's two chained Dehaze refiners over pix2pixHD's output."""
         dh = self.dehaze(torch.cat([out, x], dim=1))
-        dh = self.dehaze2(torch.cat([out, dh], dim=1))
-        return out, dh
+        return self.dehaze2(torch.cat([out, dh], dim=1))
+
+    def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        out = self.synthesize(x)
+        return out, self.enhance(out, x)
 
 
 # -- Encoder (pix2pixHD feature encoder) --------------------------------------

@@ -64,8 +64,7 @@ def main(argv=None) -> dict:
         print(f"data parallel: {mesh.size} rank(s), backend "
               f"{dist.get_backend()}, global batch {cfg.batchSize}")
     if cfg.verbose and lead:
-        print_networks({"G": model.g, **{f"D_{k}": d for k, d in
-                                         model.d.items()}}, verbose=True)
+        print_networks(model.networks(), verbose=True)
     total_steps = 0
     log = {"losses": [], "step_seconds": [], "model": model, "trace": None}
 

@@ -74,15 +74,15 @@ def build_trainer(model: str, batch: int, size: int, dtype: str, remat: bool,
     from ..models.registry import generator_spec
 
     if model == "epdn":     # the EpdnTrainer (LocalEnhancer, --epdn_ngf 32)
-        from .pix2pixhd import EpdnTrainer
         cfg = parse_args(["--name", "overfit", "--checkpoints_dir",
-                          tempfile.mkdtemp(), "--loadSize", str(size),
+                          tempfile.mkdtemp(), "--model", "epdn",
+                          "--loadSize", str(size),
                           "--patch_size", str(size // 8),
                           "--batchSize", str(batch), "--pool_size",
                           str(max(8, batch)), "--compute_dtype", dtype,
                           "--gpu_ids", gpu_ids], save_opt=False)
         set_precision(cfg.precision)
-        return EpdnTrainer(cfg, select_device(cfg.gpu_ids))
+        return create_model(cfg, select_device(cfg.gpu_ids))
     name = _MODEL_DEFAULT_G.get(model) or "iid_hlgvit_crs_gd4_cfs_v3"
     load = size // 2 if generator_spec(name).half_res_trunk else size
     argv = ["--name", "overfit", "--checkpoints_dir", tempfile.mkdtemp(),

@@ -18,21 +18,48 @@ Unlike the dehazing trainer, D trains on the pool's answer.  Every
 network runs in float32, as in JAX, where --compute_dtype only sets the
 pool's dtype: a bf16 pooled pair reaches D as float32 (JAX's type
 promotion).  Both losses use the parameters from before the step; Adam
-(beta1 --beta1, beta2 0.999, eps 1e-8) at the constant --lr, with no skip
-gate.  The wrapper surface is the JAX trainer's: set_input /
-optimize_parameters / get_current_losses; no CLI runs it, as none runs
-the JAX one.
+(beta1 --beta1, beta2 0.999, eps 1e-8) at lr_for_epoch, which the train
+CLI steps each epoch as it does for the dehazing trainer; no skip gate.
+The step is eager: no CUDA graph, and batches go through `device_batch`.
+
+The widths come from the flags: --epdn_ngf the local branch (the global
+trunk twice it, pix2pixHD's 4 downsamplings, 9 blocks and 3 local
+blocks), --ndf, --n_layers_D and --num_D the discriminator,
+--lambda_feat, --no_lsgan.  --n_downsample_global and --n_blocks are
+parity flags this trainer does not read.
+
+The wrapper surface is the dehazing trainer's, so `python -m
+cfen_vit_tpu_torch.train --model epdn` runs it through `create_model`
+(the JAX package's create_model has no `epdn`): set_input /
+optimize_parameters / get_current_losses / get_current_visuals /
+networks / setup / save_networks (`<epoch>_net_G.pth`, `_net_D.pth`,
+`<tag>_train_state.pt`) / update_learning_rate.  One process: a
+launched mesh and --grad_accum above 1 are refused.
+
+Spans (utils/profiling.py, which lists them): `train.set_input`; and
+`train.step` around `train.g_loss` (`train.g_forward` with
+`train.dehaze`, the two enhancer blocks, inside it; `train.d_on_fake`;
+`train.feat_match`, D on the real pair and the L1 terms; `train.vgg`),
+`train.g_backward`, `train.pool`, `train.d_step`, `train.adam` and
+`train.zero_grad`; `sync.losses`, `sync.visuals` around the reads.  The
+counter `d_passes` counts each MultiscaleDiscriminator forward, four a
+step; `syncs` the reads, none inside the step.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from ..losses.gan import gan_loss
 from ..losses.vgg import vgg19_init, vgg_perceptual_loss
 from ..models.epdn import LocalEnhancer, MultiscaleDiscriminator, init_epdn
+from ..parallel import mesh as M
+from ..utils.profiling import annotate, count
+from .checkpoint import load_train_state, save_net, save_train_state
+from .schedule import lr_for_epoch
 from .trainer import device_batch, pool_init, pool_query
 
 
@@ -55,6 +82,11 @@ def feature_matching_loss(pred_fake: List, pred_real: List, n_layers_d: int,
 
 class EpdnTrainer:
     def __init__(self, cfg, device: torch.device):
+        if M.current().launched:
+            raise NotImplementedError("--model epdn trains in one process: "
+                                      "no --mesh_shape")
+        if int(cfg.grad_accum) > 1:
+            raise NotImplementedError("--model epdn takes no --grad_accum")
         self.cfg = cfg
         self.device = device
         self.pool_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -69,77 +101,147 @@ class EpdnTrainer:
         self.d = init_epdn(MultiscaleDiscriminator(
             6, cfg.ndf, self.n_layers_d, self.num_d), gen).to(device)
         self.vgg = vgg19_init(cfg.vgg19_npz or None).to(device)
-        adam = dict(lr=float(cfg.lr), betas=(cfg.beta1, 0.999), eps=1e-8)
+        self.epoch = cfg.epoch_count
+        self.lr = lr_for_epoch(cfg, 0)
+        adam = dict(lr=self.lr, betas=(cfg.beta1, 0.999), eps=1e-8)
         self.g_opt = torch.optim.Adam(self.g.parameters(), **adam)
         self.d_opt = torch.optim.Adam(self.d.parameters(), **adam)
         self.pool_gen = torch.Generator().manual_seed(int(cfg.seed) + 1)
         self.pool = None
         self.step = 0
+        self.batches = 0         # taken by set_input: the unit id of spans
         self._batch: Dict[str, torch.Tensor] = {}
         self._losses: Dict[str, torch.Tensor] = {}
+        self._fake = None
         self._enhance = None
+
+    def networks(self) -> Dict[str, torch.nn.Module]:
+        """The checkpointed networks by slot name (`<epoch>_net_<name>`)."""
+        return {"G": self.g, "D": self.d}
 
     def load_state_dicts(self, g=None, d=None, vgg=None) -> None:
         for net, sd in ((self.g, g), (self.d, d), (self.vgg, vgg)):
             if sd is not None:
                 net.load_state_dict(sd, strict=True)
 
+    def setup(self, cfg=None) -> None:
+        cfg = cfg or self.cfg
+        if cfg.continue_train:
+            st = load_train_state(cfg, cfg.which_epoch, self.device)
+            self.load_state_dicts(st["g"], st["d"])
+            self.g_opt.load_state_dict(st["g_opt"])
+            self.d_opt.load_state_dict(st["d_opt"])
+            self.pool_gen.set_state(st["pool_gen"])
+            self.step = int(st["step"])
+
+    def _discriminate(self, pair, get_interm_feat: bool = False) -> List:
+        count("d_passes")
+        return self.d(pair, get_interm_feat=get_interm_feat)
+
     def _g_loss(self, hazy, real):
-        fake, enhance = self.g(hazy)
-        self._enhance = enhance.detach()
-        pred_fake = self.d(torch.cat([hazy, fake], dim=1), get_interm_feat=True)
-        with torch.no_grad():
-            pred_real = self.d(torch.cat([hazy, real], dim=1),
-                               get_interm_feat=True)
-        losses = {
-            "G_GAN": epdn_gan_loss(pred_fake, True, self.use_lsgan),
-            "G_GAN_Feat": feature_matching_loss(
+        with annotate("train.g_forward"):
+            fake = self.g.synthesize(hazy)
+            with annotate("train.dehaze"):
+                enhance = self.g.enhance(fake, hazy)
+        self._fake, self._enhance = fake.detach(), enhance.detach()
+        with annotate("train.d_on_fake"):
+            pred_fake = self._discriminate(torch.cat([hazy, fake], dim=1),
+                                           get_interm_feat=True)
+            losses = {"G_GAN": epdn_gan_loss(pred_fake, True, self.use_lsgan)}
+        with annotate("train.feat_match"):
+            with torch.no_grad():
+                pred_real = self._discriminate(torch.cat([hazy, real], dim=1),
+                                               get_interm_feat=True)
+            losses["G_GAN_Feat"] = feature_matching_loss(
                 pred_fake, pred_real, self.n_layers_d, self.num_d,
-                self.lambda_feat),
-            "G_VGG": vgg_perceptual_loss(self.vgg, enhance, real)
-            * self.lambda_feat,
-            "G_L2": torch.mean(torch.square(enhance - real)),
-        }
+                self.lambda_feat)
+        with annotate("train.vgg"):
+            losses["G_VGG"] = (vgg_perceptual_loss(self.vgg, enhance, real)
+                               * self.lambda_feat)
+        losses["G_L2"] = torch.mean(torch.square(enhance - real))
         return losses, fake
 
     def _d_loss(self, hazy, real, pooled_fake_cat):
-        l_fake = epdn_gan_loss(self.d(pooled_fake_cat), False, self.use_lsgan)
-        l_real = epdn_gan_loss(self.d(torch.cat([hazy, real], dim=1)), True,
+        l_fake = epdn_gan_loss(self._discriminate(pooled_fake_cat), False,
                                self.use_lsgan)
+        l_real = epdn_gan_loss(self._discriminate(
+            torch.cat([hazy, real], dim=1)), True, self.use_lsgan)
         return 0.5 * (l_fake + l_real), {"D_fake": l_fake, "D_real": l_real}
 
     def set_input(self, batch: Dict) -> None:
-        self._batch = device_batch(batch, self.device)
+        """The hazy (B) and clear (A) images on the device; the loader's
+        other arrays (R, S of --dataset_mode dec_vit) stay on the host."""
+        self.batches += 1
+        with annotate("train.set_input", self.batches):
+            self._batch = device_batch({k: batch[k] for k in ("A", "B")},
+                                       self.device)
 
     def optimize_parameters(self, cfg=None) -> None:
+        with annotate("train.step", self.batches):
+            self._optimize()
+
+    def _optimize(self) -> None:
         hazy, real = self._batch["B"], self._batch["A"]
         if self.pool is None:
             self.pool = pool_init(self.cfg.pool_size, (6,) + hazy.shape[2:],
                                   self.pool_dtype, self.device)
-        losses, fake = self._g_loss(hazy, real)
-        gl = sum(losses.values())
-        gl.backward(inputs=list(self.g.parameters()))
+        # the step reads nothing back from the device: the counter stays
+        # in the record at 0
+        count("syncs", 0)
+        with annotate("train.g_loss"):
+            losses, fake = self._g_loss(hazy, real)
+            gl = sum(losses.values())
+        with annotate("train.g_backward"):
+            gl.backward(inputs=list(self.g.parameters()))
         # pix2pixHD trains D on the pooled fake pair (ref :135-143)
-        _, pooled = pool_query(self.pool, torch.cat([hazy, fake.detach()], 1),
-                               self.pool_gen)
-        dl, d_losses = self._d_loss(hazy, real, pooled.to(hazy.dtype))
-        dl.backward(inputs=list(self.d.parameters()))
-        for opt in (self.g_opt, self.d_opt):
-            opt.step()
-            opt.zero_grad(set_to_none=True)
+        with annotate("train.pool"):
+            _, pooled = pool_query(self.pool,
+                                   torch.cat([hazy, fake.detach()], 1),
+                                   self.pool_gen)
+        with annotate("train.d_step"):
+            dl, d_losses = self._d_loss(hazy, real, pooled.to(hazy.dtype))
+            dl.backward(inputs=list(self.d.parameters()))
+        with annotate("train.adam"):
+            for opt in (self.g_opt, self.d_opt):
+                for group in opt.param_groups:
+                    group["lr"] = self.lr
+                opt.step()
+        with annotate("train.zero_grad"):
+            for opt in (self.g_opt, self.d_opt):
+                opt.zero_grad(set_to_none=True)
         self.step += 1
         losses.update(d_losses)
         losses["G"] = gl
         self._losses = {k: v.detach() for k, v in losses.items()}
 
     def get_current_losses(self) -> Dict[str, float]:
-        return {k: float(v) for k, v in self._losses.items()}
+        with annotate("sync.losses", self.batches):
+            count("syncs", len(self._losses))
+            return {k: float(v) for k, v in self._losses.items()}
 
-    def get_current_visuals(self) -> Dict:
-        """NHWC numpy: the hazy input, its clear target and the enhanced
-        output (the one the L2 term trains) as fake_A."""
+    def get_current_visuals(self) -> Dict[str, np.ndarray]:
+        """NHWC numpy: the hazy input, its clear target, the enhanced
+        output (the one the L2 term trains) as fake_A and pix2pixHD's
+        output before the enhancer as fake_A_synth."""
         def nhwc(t):
+            count("syncs")
             return t.float().permute(0, 2, 3, 1).cpu().numpy()
-        return {"real_B": nhwc(self._batch["B"]),
-                "real_A": nhwc(self._batch["A"]),
-                "fake_A": nhwc(self._enhance)}
+        with annotate("sync.visuals", self.batches):
+            return {"real_B": nhwc(self._batch["B"]),
+                    "real_A": nhwc(self._batch["A"]),
+                    "fake_A": nhwc(self._enhance),
+                    "fake_A_synth": nhwc(self._fake)}
+
+    def save_networks(self, epoch) -> None:
+        for name, net in self.networks().items():
+            save_net(self.cfg, epoch, name, net)
+        save_train_state(self.cfg, str(epoch), {
+            "g": self.g.state_dict(), "d": self.d.state_dict(),
+            "g_opt": self.g_opt.state_dict(), "d_opt": self.d_opt.state_dict(),
+            "pool_gen": self.pool_gen.get_state(), "step": self.step})
+
+    def update_learning_rate(self) -> None:
+        self.epoch += 1
+        old = self.lr
+        self.lr = lr_for_epoch(self.cfg, self.epoch - self.cfg.epoch_count)
+        print(f"learning rate = {self.lr:.7f} (was {old:.7f})")

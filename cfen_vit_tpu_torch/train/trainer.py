@@ -281,6 +281,10 @@ class GanTrainer:
         self._fakes: Dict[str, torch.Tensor] = {}
         self.image_paths = []
 
+    def networks(self) -> Dict[str, torch.nn.Module]:
+        """The checkpointed networks by slot name (`<epoch>_net_<name>`)."""
+        return {"G": self.g, **{f"D_{k}": d for k, d in self.d.items()}}
+
     def load_state_dicts(self, g=None, d=None, vgg=None) -> None:
         """Start from given weights: a generator state_dict, {A/R/S: D
         state_dict}, a VGG19 state_dict."""
@@ -566,9 +570,8 @@ class GanTrainer:
     def save_networks(self, epoch) -> None:
         if self.mesh.rank:
             return
-        save_net(self.cfg, epoch, "G", self.g)
-        for name, d in self.d.items():
-            save_net(self.cfg, epoch, f"D_{name}", d)
+        for name, net in self.networks().items():
+            save_net(self.cfg, epoch, name, net)
         save_train_state(self.cfg, str(epoch), {
             "g": self.g.state_dict(),
             "d": {name: d.state_dict() for name, d in self.d.items()},

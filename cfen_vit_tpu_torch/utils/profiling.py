@@ -66,6 +66,25 @@ the benchmark metric that reads each):
       train.zero_grad           the grads' reset
     sync.losses                 get_current_losses
     sync.visuals                get_current_visuals
+  train/pix2pixhd.py EpdnTrainer (names as above where the work is the
+  same)
+    train.set_input             set_input (device_batch: .wire, .copy)
+    train.step                  optimize_parameters
+      train.g_loss              the G loss
+        train.g_forward         the LocalEnhancer's forward
+          train.dehaze          its two Dehaze enhancer blocks
+        train.d_on_fake         D on the fake pair, with features
+        train.feat_match        D on the real pair, with features, and
+                                the feature-matching L1 terms
+        train.vgg               the perceptual loss
+      train.g_backward          G's backward
+      train.pool                the image pool
+      train.d_step              the D loss on the pooled pair and the
+                                real pair, and its backward
+      train.adam                Adam on G and D
+      train.zero_grad           the grads' reset
+    sync.losses                 get_current_losses
+    sync.visuals                get_current_visuals
   models/dehazing_model.py DehazingModel
     infer.set_input             set_input
     infer.test                  test
@@ -77,6 +96,8 @@ the benchmark metric that reads each):
                                 each counted inside its sync.* span
   counter graph_captures        the trainer's captures of its step
   counter graph_replays         the trainer's replays of its step
+  counter d_passes              EpdnTrainer's MultiscaleDiscriminator
+                                forwards
 """
 
 from __future__ import annotations
