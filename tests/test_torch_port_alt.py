@@ -28,7 +28,7 @@ from cfen_vit_tpu_torch.models import networks_alt as TA
 from cfen_vit_tpu_torch.models import pvt as TP
 from cfen_vit_tpu_torch.ops import actnorm_pkg as TN
 from tests.torch_variant_cases import nchw, np_tree
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 
 def _port(net, tree):

@@ -27,7 +27,7 @@ import jax.numpy as jnp
 from cfen_vit_tpu.models import epdn as JE
 from cfen_vit_tpu_torch.interop import from_jax as FJ
 from cfen_vit_tpu_torch.models import epdn as TE
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 BAR = 1e-4
 

@@ -55,15 +55,6 @@ LOSS_BAR, OUT_BAR, NET_GRAD_BAR, TENSOR_GRAD_BAR, VISUAL_BAR = (
 PARAM_BAR, ROUND_OFF_PARAM_BAR = 1e-10, 1e-8
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread (the tier-1 command runs six workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _drawn(module_fn, name):
     with torch.device("meta"):
         meta = module_fn()

@@ -17,7 +17,7 @@ from cfen_vit_tpu_torch.models import registry as TR
 from cfen_vit_tpu_torch.models.generator import Generator
 from cfen_vit_tpu_torch.train.checkpoint import load_net
 from tests import torch_variant_cases as C
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 V3 = C.V3
 

@@ -30,17 +30,6 @@ from cfen_vit_tpu_torch.ops import gradient as TGR
 from cfen_vit_tpu_torch.ops import ssim as TS
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several pytest-xdist workers on
-    the CPU's cores at once, and torch's default of one thread per core in
-    each of them oversubscribes it many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def nchw(a, dtype=torch.float32):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)
                                                  .transpose(0, 3, 1, 2))).to(dtype)

@@ -25,17 +25,6 @@ from cfen_vit_tpu_torch.ops import cuda_mrf as M
 VAL, ATOL, RTOL = 1e-4, 2e-4, 2e-3
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several pytest-xdist workers on
-    the CPU's cores at once, and torch's default of one thread per core in
-    each of them oversubscribes it many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _unit(x):
     return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 

@@ -33,7 +33,7 @@ from cfen_vit_tpu_torch.train.checkpoint import load_net
 from tests.ref_utils import load_repo_module
 from tests import torch_variant_cases as C
 from tests.torch_variant_cases import np_tree
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 V3, DECR = "iid_hlgvit_crs_gd4_cfs_v3", "iidr_hlgvit_crs_gd4"
 TINY_FLAGS = ["--model", "dec_vit", "--dataset_mode", "dec_vit",

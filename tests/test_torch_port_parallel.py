@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from cfen_vit_tpu_torch.parallel import mesh as M
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 LOSS_TOL, MOMENT_TOL, UPDATE_TOL, POOL_TOL = 5e-3, 1e-3, 5e-3, 1e-5
 

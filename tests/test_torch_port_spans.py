@@ -37,15 +37,6 @@ SPAN_METRICS = ("set_input_ms.train", "idle_set_input_ms.train",
                 "idle_unspanned_ms.infer")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread (the tier-1 command runs six workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def cpu_profile():
     return profile(activities=[ProfilerActivity.CPU])
 

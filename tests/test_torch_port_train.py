@@ -17,7 +17,7 @@ import torch
 from cfen_vit_tpu import config as jax_config
 from cfen_vit_tpu_torch import config as port_config
 from tests import torch_train_cases as C
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 TINY_FLAGS = ["--model", "dec_vit", "--dataset_mode", "dec_vit",
               "--model_G", "iid_hlgvit_crs_gd4_cfs_v3", "--n_feats", "8",

@@ -11,7 +11,7 @@ closer to float64 here (tests/torch_train_cases.py says why)."""
 import pytest
 
 from tests import torch_train_cases as C
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -31,15 +31,6 @@ from cfen_vit_tpu_torch.losses import vgg as V
 from cfen_vit_tpu_torch.utils import profiling as P
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread (the tier-1 command runs six workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # --------------------------------------------------------------------------
 # the CPU: predicate, ImageNet mean, reader
 # --------------------------------------------------------------------------

@@ -7,7 +7,7 @@ smoke (train/overfit.py) for a few steps on the CPU."""
 import numpy as np
 
 from tests import torch_train_cases as C
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 MODELS = ("decn_vit", "vit")
 

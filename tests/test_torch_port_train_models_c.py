@@ -5,7 +5,7 @@ on the grad path.  The step and the bars are tests/torch_train_cases.py's
 (model_step_tests)."""
 
 from tests import torch_train_cases as C
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 MODELS = ("dec_mgvit",)
 steps, test_model_step_matches_jax = C.model_step_tests(MODELS)

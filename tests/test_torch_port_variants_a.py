@@ -5,7 +5,7 @@ checks)."""
 import pytest
 
 from tests import torch_variant_cases as C
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 NAMES = C.GROUPS[0]
 

@@ -23,7 +23,7 @@ from cfen_vit_tpu_torch.models.dehazing_model import (_MODEL_DEFAULT_G,
                                                       DehazingModel)
 from cfen_vit_tpu_torch.models.generator import Generator, init_weights
 from tests import torch_variant_cases as C
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 TINY = ["--n_feats", "8", "--loadSize", "64", "--patch_size", "8",
         "--num_heads", "2", "--hidden_dim_ratio", "2"]

@@ -25,7 +25,7 @@ from cfen_vit_tpu_torch.interop.torch_import import load_reference_state_dict
 from cfen_vit_tpu_torch.models.generator import Generator
 from cfen_vit_tpu_torch.models.vit import ViT
 from tests import torch_variant_cases as C
-from tests.torch_variant_cases import one_torch_thread  # noqa: F401
+from tests.torch_variant_cases import release_file_memory  # noqa: F401
 
 NAMES = sorted(JR._REGISTRY)
 

@@ -53,16 +53,10 @@ def release_memory():
 
 
 @pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread while a file of these runs (each file imports this
-    fixture): the tier-1 command runs six xdist workers, and a torch pool
-    of one thread a core in each oversubscribes the cores, which made
-    these tiny forwards five to ten times slower than alone.  The file's
-    memory is released after it (`release_memory`)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+def release_file_memory():
+    """Releases a file's memory after it (`release_memory`): each file
+    that imports this fixture runs it."""
     yield
-    torch.set_num_threads(n)
     release_memory()
 
 
