@@ -14,8 +14,8 @@ train.py's.  `--gpu_ids 0` (the default) trains on cuda:0 and raises
 without CUDA; `--gpu_ids -1` on the CPU.
 
 `--trace_dir DIR` traces steps 10 to 15 with torch.profiler, as the JAX
-train.py does (utils/profiling.py: DIR/trace.json, key_averages.txt,
-summary.json), each step a span `train step <n>`.  `--verbose` prints
+train.py does (utils/profiling.py: DIR/trace.json and key_averages.txt),
+each step a span `train step <n>`.  `--verbose` prints
 each network's structure and parameter count (utils/netinfo.py).
 
 Data parallel (parallel/mesh.py): under torchrun each process trains on
@@ -66,7 +66,7 @@ def main(argv=None) -> dict:
     if cfg.verbose and lead:
         print_networks(model.networks(), verbose=True)
     total_steps = 0
-    log = {"losses": [], "step_seconds": [], "model": model, "trace": None}
+    log = {"losses": [], "step_seconds": [], "model": model}
 
     for epoch in range(cfg.epoch_count, cfg.niter + cfg.niter_decay + 1):
         epoch_start_time = time.time()
@@ -110,7 +110,7 @@ def main(argv=None) -> dict:
                              "total_steps %d)", epoch, total_steps)
                 model.save_networks("latest")
             if tracing() and total_steps == 15 * cfg.batchSize:
-                log["trace"] = stop_trace()     # after the step's print
+                stop_trace()     # after the step's print
             iter_data_time = time.time()
 
         if epoch % cfg.save_epoch_freq == 0 and lead:
@@ -124,5 +124,5 @@ def main(argv=None) -> dict:
                   f"Time Taken: {int(time.time() - epoch_start_time)} sec")
         model.update_learning_rate()
     if tracing():              # the run ended before step 15
-        log["trace"] = stop_trace()
+        stop_trace()
     return log

@@ -20,7 +20,8 @@ pool's dtype: a bf16 pooled pair reaches D as float32 (JAX's type
 promotion).  Both losses use the parameters from before the step; Adam
 (beta1 --beta1, beta2 0.999, eps 1e-8) at lr_for_epoch, which the train
 CLI steps each epoch as it does for the dehazing trainer; no skip gate.
-The step is eager: no CUDA graph, and batches go through `device_batch`.
+The step is eager: no CUDA graph.  Batches take the dehazing trainer's
+wire (`host_wire`, `copy_in`, `normalise`).
 
 The widths come from the flags: --epdn_ngf the local branch (the global
 trunk twice it, pix2pixHD's 4 downsamplings, 9 blocks and 3 local
@@ -60,7 +61,7 @@ from ..parallel import mesh as M
 from ..utils.profiling import annotate, count
 from .checkpoint import load_train_state, save_net, save_train_state
 from .schedule import lr_for_epoch
-from .trainer import device_batch, pool_init, pool_query
+from .trainer import copy_in, host_wire, normalise, pool_init, pool_query
 
 
 def epdn_gan_loss(preds: List, target_real: bool,
@@ -173,8 +174,9 @@ class EpdnTrainer:
         other arrays (R, S of --dataset_mode dec_vit) stay on the host."""
         self.batches += 1
         with annotate("train.set_input", self.batches):
-            self._batch = device_batch({k: batch[k] for k in ("A", "B")},
-                                       self.device)
+            wire = host_wire({k: batch[k] for k in ("A", "B")})
+            self._batch = {k: normalise(v)
+                           for k, v in copy_in(wire, self.device).items()}
 
     def optimize_parameters(self, cfg=None) -> None:
         with annotate("train.step", self.batches):

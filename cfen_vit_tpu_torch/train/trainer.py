@@ -160,14 +160,6 @@ def normalise(t: torch.Tensor) -> torch.Tensor:
             else t if t.is_floating_point() else t.float())
 
 
-def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """NHWC numpy arrays of a loader batch -> device NCHW in [-1, 1],
-    over the uint8 wire when that is lossless (float32 then); other
-    arrays keep their float dtype."""
-    return {k: normalise(v)
-            for k, v in copy_in(host_wire(batch), device).items()}
-
-
 # --------------------------------------------------------------------------
 # device-side ImagePool
 # --------------------------------------------------------------------------

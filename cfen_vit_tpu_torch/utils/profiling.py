@@ -27,18 +27,14 @@
   * `start_trace(logdir)` / `stop_trace()` (and the `trace(logdir)`
     context) run torch.profiler over the steps between them, CPU and, on
     a card, CUDA activity.  `stop_trace` writes into `logdir`:
-      trace.json          the Chrome trace (chrome://tracing, Perfetto);
-      key_averages.txt    torch's key-averages table by device time;
-      summary.json        the window's wall time, its kernel time by
-                          group (`GROUPS`), the launches, the device's busy
-                          share (the union of its records' intervals over
-                          the window: overlapping kernels count once) and
-                          `idle_ms_by_span`, the device's idle ms by the
-                          innermost span open on the tracing thread ("":
-                          none);
-    and returns the summary.  The train CLI traces steps 10-15 with
-    `--trace_dir`, as the JAX train.py does, each step a span
-    `train step <n>`.
+      trace.json          the Chrome trace (chrome://tracing, Perfetto),
+                          every span beside the device's rows;
+      key_averages.txt    torch's key-averages table by device time.
+    The train CLI traces steps 10-15 with `--trace_dir`, as the JAX
+    train.py does, each step a span `train step <n>`.  The device's idle
+    time by span and its time by kernel group are the benchmark's
+    reckoning (`python3 -m benchmark.run --trace 1`), which reads the
+    recorder.
 
 The spans and the counter the program records (PERF.md section 3 names
 the benchmark metric that reads each):
@@ -68,7 +64,7 @@ the benchmark metric that reads each):
     sync.visuals                get_current_visuals
   train/pix2pixhd.py EpdnTrainer (names as above where the work is the
   same)
-    train.set_input             set_input (device_batch: .wire, .copy)
+    train.set_input             set_input (A and B: .wire, .copy)
     train.step                  optimize_parameters
       train.g_loss              the G loss
         train.g_forward         the LocalEnhancer's forward
@@ -102,12 +98,9 @@ the benchmark metric that reads each):
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 import gc
-import json
 import os
-import re
 import threading
 import time
 from typing import Dict, List, Optional
@@ -115,57 +108,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-# kernel name -> group, first match wins
-GROUPS = (
-    ("K5 mrf forward", r"mrf_fwd_kernel"),
-    ("K5 mrf do", r"mrf_bwd_kernel<.*true>"),
-    ("K5 mrf dt", r"mrf_bwd_kernel<.*false>"),
-    ("K1 attention", r"attn_(wide_)?kernel"),
-    ("K3 tail", r"tail_(mma|ffma)_kernel"),
-    ("K4 stem", r"stem_kernel"),
-    ("convolution (cuDNN)", r"conv|cudnn|implicit|wgrad|dgrad|fprop|xmma|"
-                            r"winograd|im2col|nchw|nhwc"),
-    ("GEMM (cuBLAS)", r"gemm|sm90_|cutlass|cublas|splitK"),
-    ("reduction", r"reduce|Reduce|sum|norm"),
-    ("copy / cat / index", r"copy|Copy|cat|Cat|index|Index|scatter|gather|"
-                           r"transpose|permute"),
-    ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"),
-)
 CAPACITY = 1 << 18          # records a session keeps
-
-
-def group_of(name: str) -> str:
-    for group, pattern in GROUPS:
-        if re.search(pattern, name):
-            return group
-    return "other"
-
-
-def kernel_split(averages) -> dict:
-    """Device time of a finished torch.profiler run (its key_averages()):
-    ms by kernel group, the launches, and the top kernels (ms, count,
-    name)."""
-    groups: Dict[str, float] = {}
-    kernels: List[tuple] = []
-    launches = 0
-    for ev in averages:
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        # a span of `annotate` (or "#": torch's own) shows on the device's
-        # timeline too, and is not a kernel
-        if (dev_us <= 0 or "#" in ev.key or ev.key in _ANNOTATED
-                or getattr(ev, "is_user_annotation", False)
-                or ev.device_type != torch.autograd.DeviceType.CUDA):
-            continue
-        launches += ev.count
-        g = group_of(ev.key)
-        groups[g] = groups.get(g, 0.0) + dev_us / 1e3
-        kernels.append((dev_us / 1e3, ev.count, ev.key[:120]))
-    kernels.sort(reverse=True)
-    return {"groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "kernel_ms": sum(groups.values()), "launches": launches,
-            "top": kernels[:25]}
 
 
 # --------------------------------------------------------------------------
@@ -258,7 +201,6 @@ class Recorder:
 
 RECORDER = Recorder()
 _OFF = contextlib.nullcontext()
-_ANNOTATED: set = set()      # the names record_function was given
 
 
 class _Span:
@@ -272,7 +214,6 @@ class _Span:
         self.session = RECORDER.session
         self.rf = None
         if RECORDER.trace_names:
-            _ANNOTATED.add(self.name)
             self.rf = torch.profiler.record_function(self.name)
             self.rf.__enter__()
         return self
@@ -329,110 +270,6 @@ def counters() -> Dict[str, int]:
 
 
 # --------------------------------------------------------------------------
-# device time of a finished profile
-# --------------------------------------------------------------------------
-
-def device_intervals(prof) -> List[tuple]:
-    """(start_ns, end_ns) of every device record of a finished
-    torch.profiler run (kernels, memcpys, memsets; not spans) on the
-    host's clock, sorted.  The device's timestamps drift from the host's
-    by up to several ms over seconds on the H100, so they are moved onto
-    it: each device-to-host copy ends as the host call that waited for it
-    (its cudaMemcpy*, by correlation id) returns, and a device time moves
-    by the offset of these anchors, linear between them and held beyond
-    the first and the last."""
-    cuda = torch.autograd.DeviceType.CUDA
-    events = list(prof.profiler.kineto_results.events())
-    returns = {ev.correlation_id(): ev.start_ns() + ev.duration_ns()
-               for ev in events if ev.device_type() != cuda
-               and ev.name().startswith("cudaMemcpy")}
-    out, anchors = [], []
-    for ev in events:
-        name = ev.name()
-        if (ev.device_type() != cuda or ev.is_user_annotation()
-                or name.startswith("ProfilerStep") or "#" in name):
-            continue
-        start, end = ev.start_ns(), ev.start_ns() + ev.duration_ns()
-        out.append((start, end))
-        if name.startswith("Memcpy DtoH") and ev.correlation_id() in returns:
-            anchors.append((end, returns[ev.correlation_id()] - end))
-    anchors.sort()
-    at = [a for a, _ in anchors]
-
-    def move(t):
-        if not anchors:
-            return t
-        i = bisect.bisect(at, t)
-        if i == 0 or i == len(at):
-            return t + anchors[min(i, len(at) - 1)][1]
-        (t0, o0), (t1, o1) = anchors[i - 1], anchors[i]
-        return t + o0 + (o1 - o0) * (t - t0) // max(t1 - t0, 1)
-    return sorted((move(s), move(e)) for s, e in out)
-
-
-def _busy(intervals, t0: int, t1: int) -> List[tuple]:
-    """The union of `intervals` (sorted by start) inside [t0, t1]."""
-    out: List[list] = []
-    for s, e in intervals:
-        s, e = max(s, t0), min(e, t1)
-        if e <= s:
-            continue
-        if out and s <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], e)
-        else:
-            out.append([s, e])
-    return [tuple(b) for b in out]
-
-
-def busy_ns(intervals, t0: int, t1: int) -> int:
-    return sum(e - s for s, e in _busy(intervals, t0, t1))
-
-
-def idle_ms_by_span(records, intervals, t0: int, t1: int,
-                    tid: int) -> Dict[str, float]:
-    """The device's idle ms in [t0, t1] (ns) by the name of the innermost
-    span of `records` open on thread `tid` at each idle instant ("": no
-    span).  The values sum to the window less the union of
-    `intervals`."""
-    idle, at = [], t0
-    for s, e in _busy(intervals, t0, t1):
-        if s > at:
-            idle.append((at, s))
-        at = e
-    if at < t1:
-        idle.append((at, t1))
-    # the innermost open span between consecutive span boundaries
-    marks = []
-    for i, r in enumerate(records):
-        if r[3] == tid:
-            marks += [(r[4], 1, i), (r[5] or t1, 0, i)]
-    marks.sort()
-    segments, stack, prev = [], [], t0
-    for t, opening, i in marks:
-        if t > prev:
-            segments.append((prev, t, records[stack[-1]][0] if stack else ""))
-            prev = t
-        if opening:
-            stack.append(i)
-        elif i in stack:
-            stack.remove(i)
-    segments.append((prev, t1, ""))
-    out: Dict[str, float] = {}
-    k = 0
-    for s, e in idle:
-        while k < len(segments) and segments[k][1] <= s:
-            k += 1
-        j = k
-        while j < len(segments) and segments[j][0] < e:
-            a, b = max(s, segments[j][0]), min(e, segments[j][1])
-            if b > a:
-                name = segments[j][2]
-                out[name] = out.get(name, 0.0) + (b - a) / 1e6
-            j += 1
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
-
-
-# --------------------------------------------------------------------------
 # --trace_dir
 # --------------------------------------------------------------------------
 
@@ -458,53 +295,26 @@ def start_trace(logdir: str) -> None:
     prof.__enter__()
     RECORDER.begin()
     RECORDER.trace_names = True
-    _ACTIVE.update(prof=prof, logdir=logdir, t0=time.perf_counter(),
-                   t0_ns=time.time_ns(), tid=threading.get_ident())
+    _ACTIVE.update(prof=prof, logdir=logdir)
 
 
 def tracing() -> bool:
     return bool(_ACTIVE)
 
 
-def stop_trace() -> dict:
-    """Stops the running trace, writes its files into its logdir and
-    returns the summary."""
+def stop_trace() -> None:
+    """Stops the running trace and writes its files into its logdir."""
     _sync()
-    wall_ms = (time.perf_counter() - _ACTIVE["t0"]) * 1e3
-    t0_ns, t1_ns = _ACTIVE["t0_ns"], time.time_ns()
-    prof, logdir, tid = _ACTIVE["prof"], _ACTIVE["logdir"], _ACTIVE["tid"]
+    prof, logdir = _ACTIVE["prof"], _ACTIVE["logdir"]
     _ACTIVE.clear()
     RECORDER.trace_names = False
-    clock = [time.perf_counter()]
-
-    def lap():
-        clock.append(time.perf_counter())
-        return (clock[-1] - clock[-2]) * 1e3
     prof.__exit__(None, None, None)
-    write = {"stop_ms": lap()}
     os.makedirs(logdir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-    write["export_ms"] = lap()
-    averages = prof.key_averages()
     sort = ("self_device_time_total" if torch.cuda.is_available()
             else "self_cpu_time_total")
     with open(os.path.join(logdir, "key_averages.txt"), "w") as fh:
-        fh.write(averages.table(sort_by=sort, row_limit=60))
-    write["table_ms"] = lap()
-    split = kernel_split(averages)
-    device = device_intervals(prof)
-    summary = {"wall_ms": wall_ms, **split,
-               "busy_share": busy_ns(device, t0_ns, t1_ns)
-               / max(t1_ns - t0_ns, 1),
-               "idle_ms_by_span": idle_ms_by_span(spans(), device, t0_ns,
-                                                  t1_ns, tid),
-               "steps": sorted({ev.key for ev in averages
-                                if ev.key.startswith("train step ")},
-                               key=lambda k: int(k.rsplit(" ", 1)[1])),
-               "write_ms": write}
-    with open(os.path.join(logdir, "summary.json"), "w") as fh:
-        json.dump(summary, fh, indent=1)
-    return summary
+        fh.write(prof.key_averages().table(sort_by=sort, row_limit=60))
 
 
 @contextlib.contextmanager

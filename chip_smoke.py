@@ -114,9 +114,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      on each path, every run inside those bars, and its ID-MRF near-ties
      (`_decr_ties`: the plain step under input noise a millionth of the
      input, the argmax and argmin choices K5 and plain make differently,
-     against float64); two more steps of
-     decr_vit and dec_mgvit in each dtype under torch.profiler (the busy
-     share and the time by kernel group). Then --model dec_vit on the
+     against float64). Then --model dec_vit on the
      non-v3 iid_hlgvit_crs_gd4_cfs (both dtypes, the same gates);
      --grad_accum 2 on the canonical v3 against accum 1 from the same
      weights (pools take 4 images, L2_a, ssim_a, GAN_a, vgg_a within 5e-3,
@@ -125,9 +123,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
      each run's s/step after step 0 and peak memory, and a
      `{"trainers": ...}` line;
  11. the rest of the port: the train CLI on the canonical v3 at 512x512,
-     batch 4, bf16, 16 steps with --trace_dir and --verbose (a trace of
-     steps 10-15 naming K1, K3, K4 and K5's three kernels, its busy share
-     and time by kernel group; the JAX package's per-network totals);
+     batch 4, bf16, 16 steps with --trace_dir and --verbose (trace.json
+     holding steps 10-15 and key_averages.txt written, K1, K3, K4 and
+     K5's three kernels launched; the JAX package's per-network totals);
      `torchrun --standalone --nproc_per_node 1 -m cfen_vit_tpu_torch.train
      --mesh_shape 1` on NCCL, 2 float32 steps, losses within 1e-3 of the
      same steps without torchrun, and --mesh_shape 2 raising on one card;
@@ -166,6 +164,8 @@ from dataclasses import replace
 from unittest import mock
 
 import numpy as np
+
+from benchmark.counts.peaks import PEAK_BYTES, PEAK_FLOPS
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, SIDE, N_IMAGES, SEED = 4, 512, 8, 0
@@ -228,14 +228,13 @@ MRF_LAYERS = {MRF_SHAPES[0]: "relu3_1", MRF_SHAPES[1]: "relu4_1"}
 # sums over P terms in another order; bf16 outputs by a rounding flip;
 # atol is that share of the largest |value|.
 MRF_TOL = {"float32": (1e-3, 1e-4), "bfloat16": (2e-2, 1e-2)}
-# the card's published peaks (H100 SXM, dense): TF32 and bf16 tensor
-# cores, float32 FFMA outside them, HBM3.  A float32 product at float32
-# accuracy runs fastest as three TF32 passes (3xTF32, 165 TFLOP/s against
-# FFMA's 67), so that is float32's rate in every bound
+# the card's published peaks (H100 SXM, dense) beside benchmark/counts/
+# peaks.py's PEAK_FLOPS and PEAK_BYTES: TF32 tensor cores, and float32
+# FFMA outside them.  A float32 product at float32 accuracy runs fastest
+# as three TF32 passes (3xTF32, 165 TFLOP/s against FFMA's 67), so
+# PEAK_FLOPS holds that as float32's rate in every bound
 PEAK_TF32 = 495e12
 PEAK_FFMA = 67e12
-PEAK_FLOPS = {"float32": PEAK_TF32 / 3, "bfloat16": 989e12}
-PEAK_BYTES = 3.35e12
 # kernels whose device time phase 3 also reads from the profiler (a short
 # kernel's CUDA-event time is set by the host's launch path): the part of
 # the kernel's name it matches
@@ -2013,8 +2012,9 @@ def _decr_ties(torch, tr, start, tag):
 def _resident(torch, tr, n=BATCH):
     """A seeded synthetic batch (train/overfit.py's set) on the device."""
     from cfen_vit_tpu_torch.train.overfit import make_overfit_set
-    from cfen_vit_tpu_torch.train.trainer import device_batch
-    return device_batch(make_overfit_set(n, SIDE), tr.device)
+    from cfen_vit_tpu_torch.train.trainer import copy_in, host_wire, normalise
+    wire = host_wire(make_overfit_set(n, SIDE))
+    return {k: normalise(v) for k, v in copy_in(wire, tr.device).items()}
 
 
 def _trainer_cli_run(torch, argv, tag, model):
@@ -2249,8 +2249,6 @@ def phase_trainers(torch):
                     row["repeats"] = _repeat_kernels_vs_plain(
                         torch, tr, start, tag)
                     row["ties"] = _decr_ties(torch, tr, start, tag)
-                if model in ("decr_vit", "dec_mgvit"):
-                    row["trace"] = _traced_steps(torch, tr, tag)
                 rows[tag] = row
                 del run, tr, start
                 torch.cuda.empty_cache()
@@ -2296,10 +2294,6 @@ def phase_trainers(torch):
 # phase 11: tracing, data parallel, the alternate networks and losses
 # --------------------------------------------------------------------------
 
-# kernel groups (utils/profiling.py GROUPS) a traced training step of an
-# ID-MRF loss set must name
-TRACE_KERNELS = ("K1 attention", "K3 tail", "K4 stem", "K5 mrf forward",
-                 "K5 mrf do", "K5 mrf dt")
 # --model decr_vit's float32 step, kernels against plain, repeated from the
 # same weights and data (phase 10's bars)
 DECR_REPEATS = 5
@@ -2309,48 +2303,6 @@ DECR_REPEATS = 5
 # cosine about 0.97, in run Q2; a sign or a lost grad reads -1 or 0)
 ALT_BF16_TOL, ALT_GRAD_COS = 5e-2, 0.9
 DP_LOSS_TOL = 1e-3        # torchrun's two steps against one process's
-
-
-def _log_trace(tag: str, s: dict) -> None:
-    from cfen_vit_tpu_torch.utils.profiling import group_of
-    other = [name for _, _, name in s["top"] if group_of(name) == "other"]
-    log("trace", f"{tag}: {s['steps']} traced, {s['wall_ms']:.1f} ms wall, "
-        f"{s['kernel_ms']:.1f} ms of kernels ({s['launches']} launches), "
-        f"busy {100 * s['busy_share']:.1f}%; ms by group: " + ", ".join(
-            f"{g} {ms:.3f}" for g, ms in s["groups_ms"].items())
-        + f"; the largest of 'other': {other[:3]}"
-        + (f"; written in {s['write_ms']} ms" if "write_ms" in s else ""))
-
-
-def _traced_steps(torch, tr, tag, steps=2):
-    """`steps` more steps of a trainer the train CLI built, on a resident
-    batch (one untraced first), under torch.profiler's CUDA activity (the
-    host's ops left out: parsing them costs more than the steps): the
-    window's split by kernel group and the card's busy share, beside the
-    untraced step's time."""
-    from torch.profiler import ProfilerActivity, profile
-    from cfen_vit_tpu_torch.utils.profiling import kernel_split
-    tr._batch = _resident(torch, tr)
-    t0 = time.perf_counter()
-    tr.optimize_parameters()
-    torch.cuda.synchronize()
-    untraced = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            tr.optimize_parameters()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    s = {"steps": steps, "wall_ms": wall_ms, "untraced_step_s": untraced,
-         **kernel_split(prof.key_averages())}
-    s["busy_share"] = s["kernel_ms"] / wall_ms
-    s["busy_share_of_untraced"] = s["kernel_ms"] / (steps * untraced * 1e3)
-    _log_trace(tag, s)
-    log("trace", f"{tag}: the untraced step {untraced:.4f} s, its kernels "
-        f"busy {100 * s['busy_share_of_untraced']:.1f}% of it")
-    if s["kernel_ms"] <= 0:
-        raise AssertionError(f"{tag}: the trace holds no kernel time")
-    return {k: v for k, v in s.items() if k != "top"}
 
 
 def _repeat_kernels_vs_plain(torch, tr, start, tag, runs=DECR_REPEATS):
@@ -2416,11 +2368,15 @@ def _trace_cli(torch, spec, data, work):
             "--print_freq", str(BATCH), "--compute_dtype", "bfloat16",
             "--save_epoch_freq", "100", "--save_latest_freq", "100000",
             "--display_freq", "100000", "--trace_dir", trace_dir, "--verbose"]
+    counters = _counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     out = io.StringIO()
     t0 = time.perf_counter()
     with redirect_stdout(out):
         run = train_main(argv)
     seconds = time.perf_counter() - t0
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     lines = out.getvalue().splitlines()
     totals = [l for l in lines if l.startswith("[Network")]
     structure = [l for l in lines if re.match(r"^ *[\w.]+(/|: [\d,]+ params)$", l)]
@@ -2434,19 +2390,23 @@ def _trace_cli(torch, spec, data, work):
         f"{len(structure)} structure lines, " + "; ".join(totals))
     if totals != want or not structure:
         raise AssertionError(f"--verbose printed {totals}, expected {want}")
-    s = run["trace"]
     files = {f: os.path.getsize(os.path.join(trace_dir, f))
-             for f in ("trace.json", "key_averages.txt", "summary.json")
+             for f in ("trace.json", "key_averages.txt")
              if os.path.exists(os.path.join(trace_dir, f))}
-    _log_trace("v3 bf16 train CLI, --trace_dir", s)
-    log("trace", f"files {files}")
+    traced = []
+    if "trace.json" in files:
+        with open(os.path.join(trace_dir, "trace.json")) as fh:
+            traced = sorted({e.get("name") for e in json.load(fh)["traceEvents"]
+                             if str(e.get("name")).startswith("train step ")})
+    log("trace", f"files {files}; steps traced {traced}; launches {launches}")
     steps = [f"train step {i}" for i in range(10, 16)]
-    missing = [g for g in TRACE_KERNELS if not s["groups_ms"].get(g)]
-    if len(files) != 3 or s["steps"] != steps or missing:
-        raise AssertionError(f"--trace_dir: files {files}, steps {s['steps']} "
-                             f"(want {steps}), kernel groups missing {missing}")
+    idle = [k for k in ("attention", "tail", "stem") + MRF_COUNTERS
+            if not launches[k]]
+    if len(files) != 2 or traced != steps or idle:
+        raise AssertionError(f"--trace_dir: files {files}, steps {traced} "
+                             f"(want {steps}), never launched {idle}")
     shutil.rmtree(trace_dir, ignore_errors=True)
-    return {"seconds": seconds, **{k: v for k, v in s.items() if k != "top"}}
+    return {"seconds": seconds, "files": files, "launches": launches}
 
 
 def _data_parallel(torch, spec, data, work):

@@ -15,7 +15,9 @@ the pooled pair D trains on is not rounded.
 
 import ast
 import gc
+from collections import Counter
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -299,6 +301,45 @@ def test_step_records_spans_and_d_passes(tmp_path):
     assert reader("syncs.train")(summary, None) == len(losses)   # the reads
     assert reader("dehaze_ms.train")(summary, None) == pytest.approx(
         (dehaze[5] - dehaze[4]) / 1e6)              # host ms, its own clock
+
+
+@pytest.mark.parametrize("grid", ["u8", "float"])
+def test_epdn_set_input_takes_the_wire(tmp_path, grid):
+    """A loader batch (B, A, R, S) on the uint8 grid crosses as uint8, one
+    off it as float32: A and B land on the device as float32 NCHW equal to
+    the batch, R and S stay on the host, and each of A and B has one
+    `.wire` and one `.copy` span inside `train.set_input`."""
+    from cfen_vit_tpu_torch.train import pix2pixhd
+    tr = create_model(_config(tmp_path), CPU)
+    r = np.random.RandomState(4)
+    shape = (2, 64, 64)
+    if grid == "u8":
+        batch = {k: r.randint(0, 256, shape + (1 if k == "S" else 3,))
+                 .astype(np.float32) / 127.5 - 1.0 for k in "BARS"}
+    else:
+        batch = {k: r.rand(*shape, 1 if k == "S" else 3).astype(np.float32)
+                 * 2 - 1 for k in "BARS"}
+    wires, real_copy_in = [], pix2pixhd.copy_in
+
+    def copy_in(wire, device, into=None):
+        wires.append({k: v.dtype for k, v in wire.items()})
+        return real_copy_in(wire, device, into)
+    with mock.patch.object(pix2pixhd, "copy_in", copy_in), \
+            profile(activities=[ProfilerActivity.CPU]):
+        tr.set_input(batch)
+    want = np.uint8 if grid == "u8" else np.float32
+    assert wires == [{"A": want, "B": want}]
+    assert sorted(tr._batch) == ["A", "B"]
+    for k in "AB":
+        got = tr._batch[k]
+        assert got.dtype == torch.float32 and got.device == CPU
+        assert torch.equal(got, torch.from_numpy(batch[k]).permute(0, 3, 1, 2))
+    recs = P.spans()
+    assert Counter(r[0] for r in recs if r[0] != "gc") == {
+        "train.set_input": 1, "train.set_input.wire": 2,
+        "train.set_input.copy": 2}
+    assert all(recs[r[1]][0] == "train.set_input" for r in recs
+               if r[0] in ("train.set_input.wire", "train.set_input.copy"))
 
 
 @pytest.mark.parametrize("metric", ["dehaze_ms.train", "d_passes.train"])

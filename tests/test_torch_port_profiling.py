@@ -1,10 +1,12 @@
 """The port's profiling and --verbose (cfen_vit_tpu_torch/utils/
 profiling.py, utils/netinfo.py, train/cli.py) against the JAX package's
 (cfen_vit_tpu/utils/profiling.py, utils/netinfo.py, train.py:58-65):
---trace_dir traces steps 10 to 15, a traced step writes a readable trace,
-and --verbose prints the JAX package's totals for the same networks."""
+--trace_dir traces steps 10 to 15, a traced step writes a readable trace
+holding every span it recorded, and --verbose prints the JAX package's
+totals for the same networks."""
 
 import contextlib
+import gc
 import io
 import json
 from unittest import mock
@@ -78,7 +80,7 @@ def test_trace_dir_traces_steps_10_to_15(tmp_path):
             mock.patch.object(TP, "start_trace",
                               lambda d: calls.append(("start", stub.steps, d))), \
             mock.patch.object(TP, "stop_trace",
-                              lambda: calls.append(("stop", stub.steps)) or {}), \
+                              lambda: calls.append(("stop", stub.steps))), \
             mock.patch.object(TP, "tracing", lambda: calls[-1][0] == "start"
                               if calls else False):
         log = cli.main(["--name", "t", "--checkpoints_dir", str(tmp_path),
@@ -91,36 +93,48 @@ def test_trace_dir_traces_steps_10_to_15(tmp_path):
     assert stub.steps == 20 and len(log["losses"]) == 20
 
 
-def test_a_traced_step_writes_a_readable_trace(tmp_path):
+@pytest.fixture(scope="module")
+def traced_step(tmp_path_factory):
+    """A tiny GanTrainer's set_input and step inside `TP.trace`, as the
+    train CLI's step `train step 1` (collections off: the gc hook's spans
+    do not enter the trace); the trace's directory and the recorded
+    spans."""
     from cfen_vit_tpu_torch.parallel.mesh import tiny_batch, tiny_trainer
-    tr = tiny_trainer(2, "", str(tmp_path))
-    tr.set_input(tiny_batch(2))
-    with TP.trace(str(tmp_path / "trace")):
-        with TP.annotate("train step 1"):
-            tr.optimize_parameters()
+    tmp = tmp_path_factory.mktemp("traced")
+    tr = tiny_trainer(2, "", str(tmp))
+    gc.disable()
+    try:
+        with TP.trace(str(tmp / "trace")):
+            with TP.annotate("train step 1"):
+                tr.set_input(tiny_batch(2))
+                tr.optimize_parameters()
+    finally:
+        gc.enable()
+    return tmp / "trace", TP.spans()
+
+
+def _event_names(logdir):
+    with open(logdir / "trace.json") as fh:
+        return {e.get("name") for e in json.load(fh)["traceEvents"]}
+
+
+def test_a_traced_step_writes_a_readable_trace(traced_step):
+    logdir, _ = traced_step
     assert not TP.tracing()
-    with open(tmp_path / "trace" / "trace.json") as fh:
-        events = json.load(fh)["traceEvents"]
-    names = {e.get("name") for e in events}
+    names = _event_names(logdir)
     assert "train step 1" in names and "aten::convolution" in names
-    summary = json.loads((tmp_path / "trace" / "summary.json").read_text())
-    assert summary["steps"] == ["train step 1"] and summary["wall_ms"] > 0
-    # no card here: no kernel time, and the split says so
-    assert summary["kernel_ms"] == 0 and summary["busy_share"] == 0
-    # the card idle throughout, by the innermost span of the tracing thread
-    assert summary["idle_ms_by_span"]["train step 1"] > 0
-    assert "Self CPU" in (tmp_path / "trace" / "key_averages.txt").read_text()
+    assert "Self CPU" in (logdir / "key_averages.txt").read_text()
+    # the device's time by span and by kernel group are the benchmark's
+    assert sorted(p.name for p in logdir.iterdir()) == [
+        "key_averages.txt", "trace.json"]
 
 
-def test_kernel_groups_name_the_kernels():
-    assert TP.group_of("void mrf_fwd_kernel<float>(...)") == "K5 mrf forward"
-    assert TP.group_of("mrf_bwd_kernel<__nv_bfloat16, true>") == "K5 mrf do"
-    assert TP.group_of("attn_kernel<float, 32, false>") == "K1 attention"
-    assert TP.group_of("attn_wide_kernel<float, true>") == "K1 attention"
-    assert TP.group_of("void tail_mma_kernel<1>(...)") == "K3 tail"
-    assert TP.group_of("void tail_ffma_kernel<3>(...)") == "K3 tail"
-    assert TP.group_of("void stem_kernel<float>(...)") == "K4 stem"
-    assert TP.group_of("sm90_xmma_fprop_implicit_gemm") == "convolution (cuDNN)"
+def test_a_traced_step_writes_every_recorded_span_into_the_trace(traced_step):
+    logdir, spans = traced_step
+    recorded = {r[0] for r in spans}
+    assert {"train step 1", "train.set_input", "train.set_input.wire",
+            "train.set_input.copy", "train.step", "train.g_loss"} <= recorded
+    assert recorded <= _event_names(logdir)
 
 
 def _printed(fn, nets):

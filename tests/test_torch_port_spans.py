@@ -7,10 +7,9 @@ and the benchmark's reckoning of device idle time by span
     profiler's clock, counters count and collections are spans;
   * a GanTrainer step and a DehazingModel batch record the span tree the
     module's docstring lists, and `syncs` counts the reads they make;
-  * the benchmark's reckoning and the program's `idle_ms_by_span` give
-    known idle a span on a made-up window, and it sums to the window's
-    idle time; the eight readers return nothing for a program without
-    the recorder.
+  * the benchmark's reckoning gives known idle a span on a made-up
+    window, and it sums to the window's idle time; the eight readers
+    return nothing for a program without the recorder.
 """
 
 import gc
@@ -269,62 +268,6 @@ def test_benchmark_reckoning_moves_a_drifting_device_clock():
     summary["ops"] = [o for o in summary["ops"] if o[0] != "Memcpy DtoH"]
     unmoved, _ = S.idle_by_span(summary, spans)
     assert max(abs(unmoved.get(i, 0) - v) for i, v in want.items()) > MS
-
-
-class _Event:
-    def __init__(self, name, start, dur, corr, cuda=True):
-        self._v = (name, start, dur, corr, cuda)
-
-    def name(self):
-        return self._v[0]
-
-    def start_ns(self):
-        return self._v[1]
-
-    def duration_ns(self):
-        return self._v[2]
-
-    def correlation_id(self):
-        return self._v[3]
-
-    def device_type(self):
-        return (torch.autograd.DeviceType.CUDA if self._v[4]
-                else torch.autograd.DeviceType.CPU)
-
-    def is_user_annotation(self):
-        return False
-
-
-def test_the_programs_device_clock_follows_its_copies():
-    """Each device-to-host copy ends as its cudaMemcpy call returns: 1 ms
-    late at the first, 3 ms at the second, linear between, held
-    beyond."""
-    events = [_Event("k", 0, 10 * MS, 1),
-              _Event("Memcpy DtoH (Device -> Pageable)", 20 * MS, MS, 2),
-              _Event("cudaMemcpyAsync", 19 * MS, MS, 2, cuda=False),
-              _Event("k", 30 * MS, 10 * MS, 3),
-              _Event("Memcpy DtoH (Device -> Pageable)", 60 * MS, MS, 4),
-              _Event("cudaMemcpyAsync", 55 * MS, 3 * MS, 4, cuda=False),
-              _Event("k", 70 * MS, MS, 5)]
-    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
-        kineto_results=types.SimpleNamespace(events=lambda: events)))
-    got = [t / MS for se in P.device_intervals(prof) for t in se]
-    assert got == pytest.approx([-1, 9, 19, 20, 30 - 1.45, 40 - 1.95,
-                                 60 - 2.95, 58, 67, 68])
-
-
-def test_the_programs_idle_by_span_agrees():
-    summary, spans = made_up_window()
-    t0 = 1000 * MS
-    intervals = sorted((int(s * 1e3), int((s + d) * 1e3))
-                       for _, s, d in summary["ops"])
-    assert P.busy_ns(intervals, t0, t0 + 100 * MS) == 45 * MS
-    got = P.idle_ms_by_span(spans, intervals, t0, t0 + 100 * MS, 1)
-    assert got == pytest.approx({"train.step": 20.0, "train.set_input": 8.0,
-                                 "train.set_input.copy": 2.0,
-                                 "train.g_loss": 7.0, "gc": 3.0,
-                                 "sync.skip_gate": 5.0, "": 10.0})
-    assert sum(got.values()) == pytest.approx(55.0)
 
 
 def test_span_metrics_read_the_window(monkeypatch):
